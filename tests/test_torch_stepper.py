@@ -1,0 +1,143 @@
+"""The port's forward rollout against the JAX package's, on a small bench
+scene in f64 on the CPU, and the saved golden positions that chip_smoke.py
+holds the CUDA run against.
+
+The cloth starts jittered by 1e-6 m (numpy seed 0): on the exact grid some
+contact queries sit at exact ties between coplanar faces, which the JAX
+package itself breaks differently under jit and op by op; the jitter makes
+every face choice robust to summation order.
+
+Regenerate the golden file (after a deliberate change of the reference):
+    python tests/test_torch_stepper.py
+"""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from thinshelllab_tpu.engine import stepper as jstepper
+from thinshelllab_tpu.scenes import bench_scene as jbench
+from thinshelllab_torch.engine import stepper
+from thinshelllab_torch.scenes import bench_scene
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "data", "bench8_golden.npz")
+CFG = dict(cloth_N=8, table_n=4, solver="cg", hess_refresh=8,
+           max_newton_iter=4, fwd_tol=1e-10)
+T = 2
+# positions in metres (scene 0.1 m, 8e-4 m of motion over the rollout):
+# same arithmetic, sums in another order
+POS_ATOL = 1e-9
+
+
+def _jittered_pos0(pos0, n_cloth):
+    pos0 = np.array(pos0, dtype=np.float64)
+    pos0[:n_cloth] += 1e-6 * np.random.default_rng(0).normal(size=(n_cloth, 3))
+    return pos0
+
+
+def _actions():
+    dpos = np.zeros((T, 1, 3))
+    dpos[:, 0, 2] = -4e-4  # bench.py:143-149
+    return dpos, np.zeros((T, 1, 3)), np.zeros((T, 1))
+
+
+def _jax_rollout():
+    sc = jbench.make(dtype=jnp.float64, **CFG)
+    pos0 = _jittered_pos0(sc.state0.pos, (CFG["cloth_N"] + 1) ** 2)
+    state0 = jax.tree.map(jnp.asarray, sc.state0.replace(pos=pos0))
+    acts = tuple(jnp.asarray(a) for a in _actions())
+    _, buf = jax.jit(
+        lambda s, a: jstepper.simulate(sc.spec, sc.params, s, a))(state0, acts)
+    return pos0, {k: np.asarray(buf[k]) for k in
+                  ("pos", "yield_gate", "final_proj_flag", "final_proj_dir")}
+
+
+@pytest.fixture(scope="module")
+def rollouts():
+    pos0, jbuf = _jax_rollout()
+    sc = bench_scene.make(dtype=torch.float64, **CFG)
+    spec, s0, params = sc.to("cpu")
+    s0 = s0.replace(pos=torch.as_tensor(pos0))
+    stats = {}
+    _, tbuf = stepper.simulate(spec, params, s0,
+                               tuple(torch.as_tensor(a) for a in _actions()),
+                               stats=stats)
+    return pos0, jbuf, tbuf, stats
+
+
+def test_simulate_matches_jax(rollouts):
+    _pos0, jbuf, tbuf, stats = rollouts
+    assert tbuf["pos"].shape == (T + 1,) + jbuf["pos"].shape[1:]
+    np.testing.assert_allclose(tbuf["pos"].numpy(), jbuf["pos"], rtol=0,
+                               atol=POS_ATOL)
+    np.testing.assert_array_equal(tbuf["yield_gate"].numpy(),
+                                  jbuf["yield_gate"])
+    np.testing.assert_array_equal(tbuf["final_proj_flag"].numpy(),
+                                  jbuf["final_proj_flag"])
+    np.testing.assert_array_equal(tbuf["final_proj_dir"].numpy(),
+                                  jbuf["final_proj_dir"])
+    assert int(jbuf["final_proj_flag"].sum()) > 0, "no contact was made"
+    assert stats["newton_iters"] == T * CFG["max_newton_iter"]
+    assert stats["hess_builds"] == T and stats["cg_iters"] > 0
+
+
+def test_golden_file_is_current(rollouts):
+    """The saved golden positions are what JAX computes today."""
+    pos0, jbuf, _tbuf, _stats = rollouts
+    g = np.load(GOLDEN)
+    np.testing.assert_array_equal(g["pos0"], pos0)
+    np.testing.assert_allclose(g["pos"], jbuf["pos"], rtol=0, atol=1e-12)
+    for key in ("cloth_N", "table_n", "max_newton_iter"):
+        assert int(g[key]) == CFG[key]
+    assert float(g["fwd_tol"]) == CFG["fwd_tol"]
+
+
+def test_float32_rollout_stays_float32():
+    """The bench's working type end to end on the CPU: every buffer stays
+    float32 (a float64 leak would make the kernels refuse their inputs on
+    the card) and the positions stay finite."""
+    sc = bench_scene.make(dtype=torch.float32,
+                          **{**CFG, "fwd_tol": 1e-3, "max_newton_iter": 2})
+    spec, s0, params = sc.to("cpu")
+    acts = tuple(torch.as_tensor(a, dtype=torch.float32)
+                 for a in _actions())
+    _, buf = stepper.simulate(spec, params, s0, acts)
+    for k, v in buf.items():
+        if v.is_floating_point():
+            assert v.dtype == torch.float32, k
+    assert bool(torch.isfinite(buf["pos"]).all())
+    assert float(sc.reward(buf)) == -float(
+        buf["pos"][-1, :(CFG["cloth_N"] + 1) ** 2, 2].sum())
+
+
+def test_simulate_requires_a_moved_spec():
+    sc = bench_scene.make(dtype=torch.float64, **CFG)
+    with pytest.raises(TypeError, match="spec.to"):
+        stepper.simulate(sc.spec, sc.params, sc.state0,
+                         tuple(torch.as_tensor(a) for a in _actions()))
+
+
+def test_refresh_one_branch_raises():
+    sc = bench_scene.make(dtype=torch.float64,
+                          **{**CFG, "hess_refresh": 1})
+    spec, s0, params = sc.to("cpu")
+    with pytest.raises(NotImplementedError, match="hess_refresh=1"):
+        stepper.simulate(spec, params, s0,
+                         tuple(torch.as_tensor(a) for a in _actions()))
+
+
+def _write_golden():
+    pos0, jbuf = _jax_rollout()
+    np.savez_compressed(
+        GOLDEN, pos0=pos0, pos=jbuf["pos"], cloth_N=CFG["cloth_N"],
+        table_n=CFG["table_n"], max_newton_iter=CFG["max_newton_iter"],
+        fwd_tol=CFG["fwd_tol"])
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    _write_golden()

@@ -1,0 +1,53 @@
+"""Carry a scene built by the JAX package into the port.
+
+`from_reference(obj)` turns the JAX builder's `SceneSpec`, `SimState`,
+`Params` (or any of their nested dataclasses) into the port's dataclass of
+the same name: numpy leaves are copied, static fields kept, the spec's
+dtype and SpMV route renamed to the port's. It reads attributes only, so
+this module imports no JAX; the tests use it to feed one scene to both
+packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import spec as _spec
+
+_DTYPES = {np.dtype(np.float32): torch.float32,
+           np.dtype(np.float64): torch.float64}
+_SPMV = {"auto": "auto", "pallas": "kernel", "xla": "plain"}
+
+
+def torch_dtype(d) -> torch.dtype:
+    """torch dtype of a numpy/JAX float dtype or scalar type."""
+    if isinstance(d, torch.dtype):
+        return d
+    return _DTYPES[np.dtype(d)]
+
+
+def from_reference(obj):
+    """The port's counterpart of a JAX-side spec/state/params object."""
+    if obj is None or isinstance(obj, (tuple, list, int, float, str, bool)):
+        return obj
+    if isinstance(obj, np.ndarray):
+        return np.array(obj, copy=True)
+    if not dataclasses.is_dataclass(obj):
+        return np.array(obj, copy=True)  # a device array of the reference
+    cls = getattr(_spec, type(obj).__name__)
+    kw = {}
+    names = {f.name for f in dataclasses.fields(cls)}
+    for f in dataclasses.fields(obj):
+        if f.name not in names:
+            raise TypeError(f"{cls.__name__} has no field {f.name!r}")
+        v = getattr(obj, f.name)
+        if f.name == "dtype":
+            v = torch_dtype(v)
+        elif f.name == "spmv":
+            v = _SPMV[v]
+        else:
+            v = from_reference(v)
+        kw[f.name] = v
+    return cls(**kw)

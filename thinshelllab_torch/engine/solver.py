@@ -1,0 +1,304 @@
+"""The forward linear solve and the modified-Newton loop (counterpart of
+`thinshelllab_tpu/engine/solver.py`, the path the bench forward runs).
+
+  * `_solve_cg_prepared_T`: preconditioned CG in the transposed (3, NVp)
+    layout on the hybrid-DIA operator. The preconditioner is the damped
+    block-Jacobi smoothing polynomial: the fused `dia_precond` CUDA kernels
+    when the SpMV route is the kernel (`elements.use_spmv_kernel`), the
+    per-sweep plain polynomial of the cheap operator otherwise.
+  * `newton_solve`: the macro/micro modified Newton of the JAX package
+    (operator rebuilt every `hess_refresh` iterations, residual fresh every
+    iteration) with a backtracking line search on the fused energy+force
+    evaluation.
+
+The JAX package runs these loops as `lax.while_loop`s on the device. Here
+they are Python loops: every loop test reads one scalar back to the host
+(a device sync per CG iteration, per line-search trial and per Newton
+iteration), with the arithmetic unchanged.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.spec import SceneSpec
+from ..ops import dia_spmv as _spmv
+from . import elements
+
+
+def _inv3x3(A):
+    """Batched closed-form 3x3 inverse via the adjugate, with a
+    finfo(dtype).tiny guard on the determinant."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    A11 = e * i - f * h
+    A12 = c * h - b * i
+    A13 = b * f - c * e
+    A21 = f * g - d * i
+    A22 = a * i - c * g
+    A23 = c * d - a * f
+    A31 = d * h - e * g
+    A32 = b * g - a * h
+    A33 = a * e - b * d
+    det = a * A11 + b * A21 + c * A31
+    tiny = torch.finfo(det.dtype).tiny
+    inv_det = 1.0 / torch.where(torch.abs(det) > tiny, det,
+                                torch.full_like(det, tiny))
+    out = torch.stack([A11, A12, A13, A21, A22, A23, A31, A32, A33],
+                      dim=-1).reshape(A.shape)
+    return out * inv_det[..., None, None]
+
+
+def _safe_div(num, den):
+    """num / den with |den| <= tiny replaced by tiny (f32-safe guard)."""
+    tiny = torch.finfo(den.dtype).tiny
+    return num / torch.where(torch.abs(den) > tiny, den,
+                             torch.full_like(den, tiny))
+
+
+def prepare_solver_state(spec: SceneSpec, groups, dtype):
+    """Everything the iterative solve needs, built once per operator: the
+    DIA store, the leftover pull blocks, the preconditioner diagonals and
+    the split contact blocks."""
+    if spec.dia is None:
+        raise NotImplementedError("scenes without a DIA plan (the pull and "
+                                  "dense paths) are not ported yet")
+    st = {"H": groups["H"], "idx": groups["idx"]}
+    st["dia"] = elements.assemble_dia(spec, groups, dtype)
+    if spec.hvp_slots is not None and spec.hvp_slots.D > 0:
+        st["nbr"] = elements.gather_neighbor_blocks(spec, groups, dtype)
+    st["D"], st["Dc"] = elements.diag_blocks_dia(
+        spec, groups, st["dia"], st.get("nbr"), return_contact=True)
+    ns = elements.static_block_count(spec)
+    split = elements.build_contact_split(spec, st["idx"][ns:],
+                                         groups["H"][ns:], dtype)
+    if split is not None:
+        st.update(split)
+    return st
+
+
+def _fused_precond_T(spec: SceneSpec, st, D, Dinv, w, smooth, dtype, unf2):
+    """The damped block-Jacobi smoothing polynomial through the dia_precond
+    kernels, on (3, NVp) vectors. The kernels' cheap operator is
+    A' = off-band DIA + D with the full masked block diagonal D folded into
+    the offset-0 lane (the leftover pull rows keep only their diagonal).
+    Frozen DOFs stay zero inside the kernels; the plain recurrence there is
+    the scalar fixed point z_{k+1} = (1-w) z_k + w (dt^2/m) r, added in
+    closed form."""
+    plan = spec.dia
+    NV, NVp = spec.NV, plan.NVp
+    off0 = spec.dev.off0
+    unf = spec.dev.unf.to(dtype)
+    dia_pre = st["dia"].clone()
+    dia_pre[off0, :, :, :NV] = D.permute(1, 2, 0)
+    dinv_l = D.new_zeros((3, 3, NVp), dtype=dtype)
+    dinv_l[:, :, :NV] = Dinv.permute(1, 2, 0)
+    coef = (spec.dt**2 / spec.mass)[:, None] * (1.0 - (1.0 - w) ** (smooth + 1))
+    cf2 = D.new_zeros((3, NVp), dtype=dtype)
+    cf2[:, :NV] = (coef * (1.0 - unf)).T
+
+    def precond(r2):
+        z2 = _spmv.dia_precond(dia_pre, r2 * unf2, unf2, dinv_l, plan.offsets,
+                               w, smooth, spec.dev.offsets_t)
+        return z2 * unf2 + cf2 * r2
+
+    return precond
+
+
+def _warm_split(A, F, x0):
+    """Optimally scaled warm start: alpha = argmin |F - a A x0|. Returns
+    (base, b_eff) with base = alpha x0 and b_eff = F - A base; a useless
+    warm start degrades exactly to the cold start (alpha -> 0)."""
+    Ax0 = A(x0)
+    den = torch.sum(Ax0 * Ax0)
+    tiny = torch.finfo(den.dtype).tiny
+    alpha = torch.sum(F * Ax0) / torch.clamp(den, min=tiny)
+    alpha = torch.where(torch.isfinite(alpha) & (den > tiny), alpha,
+                        torch.zeros_like(alpha))
+    return alpha * x0, F - alpha * Ax0
+
+
+def solve_cg_prepared(spec: SceneSpec, st, F, return_iters=False, x0=None):
+    """Block-Jacobi PCG on H p = F (frozen-masked), warm-started from x0."""
+    if spec.dia is None:
+        raise NotImplementedError("CG without a DIA plan is not ported yet")
+    return _solve_cg_prepared_T(spec, st, F, return_iters=return_iters, x0=x0)
+
+
+def _solve_cg_prepared_T(spec: SceneSpec, st, F, return_iters=False,
+                         x0=None):
+    """PCG with every iterate in the DIA matvec's (3, NVp) layout; F
+    converts at entry and x at exit. The stopping test
+    |r|^2 > (fwd_tol |F|)^2 + tiny, finite, it < cg_max_iter is read on the
+    host once per iteration."""
+    dtype = F.dtype
+    if dtype == spec.dtype:
+        unf2, m2 = spec.dev.unf2, spec.dev.m2
+    else:
+        unf2, m2 = elements.t2_consts(spec, dtype)
+    nbr = st.get("nbr")
+    groups = {"idx": st["idx"], "H": st["H"]}
+    for k in ("Dcon", "idx_con", "H_con", "mm_S", "mm_H"):
+        if k in st:
+            groups[k] = st[k]
+    DconT = (elements.blocks_to_t33(spec, st["Dcon"], dtype)
+             if "Dcon" in st else None)
+
+    def A(x2):
+        return (elements.hvp_dia_static_T(spec, st["dia"], nbr, x2, unf2, m2)
+                + elements.hvp_dia_contact_T(spec, groups, x2, unf2, DconT))
+
+    D = st["D"]
+    Dinv = _inv3x3(D)
+    smooth = spec.precond_smooth
+    if smooth > 0:
+        w = spec.precond_omega
+        if elements.use_spmv_kernel(spec, F):
+            precond = _fused_precond_T(spec, st, D, Dinv, w, smooth, dtype,
+                                       unf2)
+        else:
+            DinvT = elements.blocks_to_t33(spec, Dinv, dtype)
+            DcT = elements.blocks_to_t33(spec, st["Dc"], dtype)
+
+            def A_cheap(x2):
+                return (elements.hvp_dia_static_T(spec, st["dia"], nbr, x2,
+                                                  unf2, m2)
+                        + torch.einsum("ijn,jn->in", DcT, x2))
+
+            def precond(r2):
+                z2 = w * torch.einsum("ijn,jn->in", DinvT, r2)
+                for _ in range(smooth):
+                    z2 = z2 + w * torch.einsum("ijn,jn->in", DinvT,
+                                               r2 - A_cheap(z2))
+                return z2
+    else:
+        DinvT = elements.blocks_to_t33(spec, Dinv, dtype)
+
+        def precond(r2):
+            return torch.einsum("ijn,jn->in", DinvT, r2)
+
+    bnorm = torch.linalg.vector_norm(F)
+    fwd_tol = spec.cg_tol if spec.fwd_tol is None else spec.fwd_tol
+    tol2 = (fwd_tol * bnorm) ** 2 + torch.finfo(dtype).tiny
+    b = elements.to_t2(spec, F)
+    base = None
+    if x0 is not None:
+        base, b = _warm_split(A, b, elements.to_t2(spec, x0))
+
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    p = z
+    rz = torch.sum(r * z)
+    it = 0
+    while it < spec.cg_max_iter:
+        rr = torch.sum(r * r)
+        if not bool((rr > tol2) & torch.isfinite(rr)):  # host sync
+            break
+        Ap = A(p)
+        alpha = _safe_div(rz, torch.sum(p * Ap))
+        # breakdown guard: never poison x
+        alpha = torch.where(torch.isfinite(alpha), alpha,
+                            torch.zeros_like(alpha))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.sum(r * z)
+        p = z + _safe_div(rz_new, rz) * p
+        rz = rz_new
+        it += 1
+    if base is not None:
+        x = base + x
+    x = elements.from_t2(spec, x)
+    if return_iters:
+        return x, it
+    return x
+
+
+def newton_solve(spec: SceneSpec, params, pos0, prev_pos, vel, ref_angle,
+                 contact, stats=None):
+    """Minimize the incremental potential from the inertia predictor.
+    Returns the converged positions.
+
+    Modified Newton (spec.hess_refresh > 1): each macro iteration rebuilds
+    the operator (element Hessians, DIA store, preconditioner) and runs up
+    to `hess_refresh` micro iterations on it; a micro iteration solves for
+    the direction p (warm-started from the previous one), line-searches
+    E(pos - alpha p) < E0 by halving alpha, and takes the accepted trial's
+    forces as the next residual. It stops when it reaches max_newton_iter
+    or max|p|/dt < newton_tol. `stats` (a dict) accumulates the counts
+    newton_iters, hess_builds, cg_iters and ls_trials."""
+    refresh = max(1, spec.hess_refresh)
+    if refresh == 1 or spec.solver == "dense":
+        raise NotImplementedError(
+            "the hess_refresh=1 Newton branch and the dense solver are not "
+            "ported yet; the bench forward runs modified Newton on 'cg'")
+    if stats is not None:
+        for k in ("newton_iters", "hess_builds", "cg_iters", "ls_trials"):
+            stats.setdefault(k, 0)
+
+    x_hat = pos0 + vel * spec.dt + (
+        spec.gravity + spec.ext_force / spec.mass[:, None]) * spec.dt**2
+    start = torch.where(spec.frozen, pos0, x_hat)
+
+    def ls_ef(pos, p, E0, soups, dsoups):
+        """Backtracking line search on the fused energy+force evaluation.
+        On success the accepted (alpha, E, g); on failure (alpha below
+        linesearch_min_alpha) the last trial's step stays applied, as in
+        the reference. Returns (new_pos, E, g, applied alpha)."""
+        EF = elements.linesearch_ef_fn(spec, params, pos, p, prev_pos, vel,
+                                       ref_angle, contact, soups, dsoups)
+        alpha = 1.0
+        while True:
+            E, g = EF(alpha)
+            if stats is not None:
+                stats["ls_trials"] += 1
+            if bool(E < E0):  # host sync
+                applied = alpha
+                break
+            applied = alpha
+            alpha *= 0.5
+            if not alpha > spec.linesearch_min_alpha:
+                break
+        return pos - applied * p, E, g, applied
+
+    pos = start
+    E0 = elements.total_energy(spec, params, start, prev_pos, vel, ref_angle,
+                               contact)
+    soups = elements.gather_soups(spec, contact, start)
+    fg0 = elements.force_groups_from_soups(spec, params, soups, ref_angle,
+                                           contact)
+    F = elements.assemble_residual(spec, fg0, start, prev_pos, vel)
+    it = 0
+    delta = torch.tensor(1e5, dtype=start.dtype, device=start.device)
+    p_prev = torch.zeros_like(start)
+
+    def running():  # host sync
+        return it < spec.max_newton_iter and bool(delta >= spec.newton_tol)
+
+    while running():
+        groups = elements.all_groups(spec, params, pos, ref_angle, contact,
+                                     with_hess=True, spd=True)
+        op = prepare_solver_state(spec, groups, pos.dtype)
+        if stats is not None:
+            stats["hess_builds"] += 1
+        # the JAX micro loop masks its updates with cont = the outer loop's
+        # condition; once it is false every later micro iteration (and the
+        # macro loop) is a no-op, so it is a break here
+        for _ in range(refresh):
+            if not running():
+                break
+            p, n_cg = solve_cg_prepared(spec, op, F, return_iters=True,
+                                        x0=p_prev)
+            d_new = torch.amax(torch.abs(p)) / spec.dt
+            dsoups = elements.gather_soups(spec, contact, p, direction=True)
+            new_pos, E_new, g_new, applied = ls_ef(pos, p, E0, soups, dsoups)
+            F = elements.assemble_residual(
+                spec, {"idx": op["idx"], "g": g_new}, new_pos, prev_pos, vel)
+            soups = {k: soups[k] - applied * dsoups[k] for k in soups}
+            pos, E0, delta, p_prev = new_pos, E_new, d_new, p
+            it += 1
+            if stats is not None:
+                stats["newton_iters"] += 1
+                stats["cg_iters"] += n_cg
+    return pos
