@@ -1,11 +1,19 @@
 """Smoke run of thinshelllab_torch on one CUDA card.
 
 Builds the two DIA kernels (csrc/dia_spmv.cu) with nvcc, holds each against
-its plain PyTorch version on the full bench scene's assembled operator,
-holds a small f64 rollout against the JAX package's saved positions
-(tests/data/bench8_golden.npz), then runs the bench scene's forward rollout
-at full size (cloth_N=70: 5,605 vertices, 9,800 cloth triangles) in f32
-with the kernels, and once more on the plain path.
+its plain PyTorch version (and times a PyTorch sparse product beside
+dia_spmv) on the full bench scene's assembled operator, holds a small f64
+rollout and a small f64 forward+backward against the JAX package's saved
+positions and gradients (tests/data/bench8_golden.npz,
+tests/data/bench8_adjoint_golden.npz), then runs the bench scene's main
+path at full size (cloth_N=70: 5,605 vertices, 9,800 cloth triangles) in
+f32 with the kernels: the forward rollout, `seed_loss` and the adjoint
+backward. Both halves run once more on the plain path, the backward once
+more in f64 on the same tape, and the forward+backward once under phase
+timers and once under the profiler. On the bench's actions the pad never
+touches the cloth (the cloth sinks faster than the pad's 0.4 mm a step),
+so the bench's gripper gradient is zero; a last phase runs the full-size
+forward+backward with the pad pressing 2 mm a step, where it is not.
 
     python3 chip_smoke.py
 
@@ -25,6 +33,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "bench8_golden.npz")
+GOLDEN_ADJ = os.path.join(ROOT, "tests", "data", "bench8_adjoint_golden.npz")
 
 # kernel vs plain version, max |kernel - plain| / max |plain|: both sum the
 # same 9 * n_off products per row in another order; the preconditioner
@@ -44,17 +53,32 @@ GOLDEN_ATOL = 1e-8
 # rounding; a wrong operator or preconditioner moves them by the whole
 # displacement.
 PLAIN_VS_KERNEL_RTOL = 1e-1
+# small f64 forward+backward vs the JAX gradients, max |d| / max |JAX|:
+# forward CG to 1e-10, GMRES to adj_tol 1e-10 on both sides, sums in
+# another order (the CPU port agrees to 1e-12)
+GOLDEN_ADJ_RTOL = 1e-7
+# full-size f32 backward, plain path vs kernels on one tape, max |d| / max
+# |plain| of gripper_grad and pos_grad0: f32 GMRES stops at its residual
+# floor, so operators that differ by rounding end at different points
+# near it
+ADJ_PLAIN_RTOL = 5e-2
 T_STEPS = 8
 DISPLACEMENT_Z = -4e-4  # bench.py:143-149: the pad moves 0.4 mm down a step
+# the pressing run: the pad moves 2 mm down a step and reaches the cloth
+T_PRESS, PRESS_Z = 4, -2e-3
+# the card's published peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s
+# and float32 FLOP/s outside the tensor cores, at a 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def bench_actions(T, dtype, device):
+def bench_actions(T, dtype, device, dz=None):
     dpos = torch.zeros((T, 1, 3), dtype=dtype, device=device)
-    dpos[:, 0, 2] = DISPLACEMENT_Z
+    dpos[:, 0, 2] = DISPLACEMENT_Z if dz is None else dz
     return (dpos, torch.zeros((T, 1, 3), dtype=dtype, device=device),
             torch.zeros((T, 1), dtype=dtype, device=device))
 
@@ -115,6 +139,59 @@ def operator_inputs(sc, device, dtype):
     return spec, st["dia"], dia_pre, dinv
 
 
+def bound_ms(n_bytes, n_flop):
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the float32 operations over the peak rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sparse_matvec(dia, offsets, layout):
+    """The DIA store as one PyTorch sparse matrix over the vertex-major
+    vector (3 NVp,): 'bsr' with the (3, 3) blocks, 'csr' with scalars.
+    Block (n, n + o) is dia[o_index, :, :, n]; out-of-range columns drop."""
+    n_off, _, _, NVp = dia.shape
+    n = torch.arange(NVp, device=dia.device)
+    rows, cols, vals = [], [], []
+    for oi, o in enumerate(offsets):
+        c = n + o
+        ok = (c >= 0) & (c < NVp)
+        rows.append(n[ok])
+        cols.append(c[ok])
+        vals.append(dia[oi][:, :, ok].permute(2, 0, 1))
+    rows, cols, vals = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    size = (3 * NVp, 3 * NVp)
+    if layout == "bsr":
+        order = torch.argsort(rows * NVp + cols)
+        crow = torch.zeros(NVp + 1, dtype=torch.int64, device=dia.device)
+        crow[1:] = torch.cumsum(torch.bincount(rows, minlength=NVp), 0)
+        return torch.sparse_bsr_tensor(crow, cols[order], vals[order],
+                                       size=size)
+    ij = torch.arange(3, device=dia.device)
+    r = (3 * rows[:, None, None] + ij[None, :, None]).expand_as(vals)
+    c = (3 * cols[:, None, None] + ij[None, None, :]).expand_as(vals)
+    coo = torch.sparse_coo_tensor(torch.stack([r.reshape(-1), c.reshape(-1)]),
+                                  vals.reshape(-1), size=size)
+    return coo.coalesce().to_sparse_csr()
+
+
+def library_spmv(dia, x2, offsets):
+    """One PyTorch sparse matrix-vector call computing dia_spmv (BSR with
+    3x3 blocks, else CSR): (call, layout, error text of a layout that did
+    not run). The port never calls it."""
+    xv = x2.T.contiguous().reshape(-1, 1)
+    errors = []
+    for layout in ("bsr", "csr"):
+        try:
+            S = sparse_matvec(dia, offsets, layout)
+            S @ xv
+            return (lambda: S @ xv), layout, "; ".join(errors)
+        except (RuntimeError, NotImplementedError) as e:
+            errors.append(f"{layout}: {str(e).splitlines()[0]}")
+    return None, None, "; ".join(errors)
+
+
 def kernel_checks(sc, device):
     from thinshelllab_torch.ops import dia_spmv as K
 
@@ -154,8 +231,39 @@ def kernel_checks(sc, device):
             if not rel <= tol:
                 raise AssertionError(f"{name} {dtype}: kernel disagrees with "
                                      f"its plain version ({rel:.3e} > {tol})")
+            it = dia.element_size()
+            if name == "dia_spmv":
+                # store, x in, y out; 2 operations per store entry
+                n_bytes = (dia.numel() + 2 * x2.numel()) * it + 4 * len(offs)
+                n_flop = 2 * dia.numel()
+                lib, layout, lib_note = library_spmv(dia, x2, offs)
+            else:
+                # store, r, unf, D^-1 in, z out; per sweep one SpMV plus
+                # the residual, D^-1 product and update on 3 NVp rows
+                n_bytes = ((dia_pre.numel() + 3 * r2.numel() + dinv.numel())
+                           * it + 4 * len(offs))
+                n_flop = (sweeps * 2 * dia_pre.numel()
+                          + (sweeps + 1) * 24 * NVp)
+                lib, layout, lib_note = None, None, (
+                    "none: no single PyTorch call computes the polynomial")
+            b_ms, b_by = bound_ms(n_bytes, n_flop)
+            lib_ms = None
+            if lib is not None:
+                y_lib = lib().reshape(NVp, 3).T
+                lib_rel = float((y_lib - yp).abs().max() / yp.abs().max())
+                lib_ms = device_ms(lib)
+                lib_note = (f"{layout} matmul, {call_ms(lib):.4f} ms "
+                           f"between CUDA events, max rel err vs plain "
+                           f"{lib_rel:.3e}; " + lib_note)
+            log(f"[kernel] {name} {str(dtype)[6:]}: bound {b_ms:.4f} ms by "
+                f"{b_by} ({n_bytes / 1e6:.2f} MB, {n_flop / 1e6:.2f} MFLOP); "
+                f"library call "
+                + (f"{lib_ms:.4f} ms of device time" if lib_ms is not None
+                   else "none") + f" ({lib_note.rstrip('; ')})")
             if dtype == torch.float32:
-                out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+                out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=lib_ms)
     return out
 
 
@@ -180,23 +288,371 @@ def golden_check(device):
         raise AssertionError(f"golden rollout off by {err:.3e} m")
 
 
-def rollout(spec, s0, params, device):
+def golden_adjoint_check(device):
+    """The small f64 scene's forward and default backward with the kernels
+    against the JAX package's gradients (the bench's no-tape path)."""
+    from thinshelllab_torch.engine import adjoint, stepper
+    from thinshelllab_torch.ops import dia_spmv as K
+    from thinshelllab_torch.scenes import bench_scene
+
+    g = np.load(GOLDEN_ADJ)
+    sc = bench_scene.make(cloth_N=int(g["cloth_N"]), table_n=int(g["table_n"]),
+                          dtype=torch.float64, solver="cg", hess_refresh=8,
+                          max_newton_iter=int(g["max_newton_iter"]),
+                          fwd_tol=float(g["fwd_tol"]),
+                          adj_tol=float(g["adj_tol"]))
+    spec, s0, params = sc.to(device, torch.float64)
+    s0 = s0.replace(pos=torch.as_tensor(g["pos0"], device=device))
+    dpos = torch.as_tensor(g["dpos"], device=device)
+    T = dpos.shape[0]
+    acts = (dpos, torch.zeros_like(dpos),
+            torch.zeros((T, 1), dtype=torch.float64, device=device))
+    K.reset_launches()
+    _, buf = stepper.simulate(spec, params, s0, acts)
+    seeds = sc.seed_loss(buf)
+    res = adjoint.backward(spec, params, buf, *seeds)
+    iters = adjoint.backward(spec, params, buf, *seeds,
+                             debug_iters=True).pos_grad0.cpu().numpy()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    pos_err = float(np.abs(buf["pos"].cpu().numpy() - g["pos"]).max())
+    gg, pg0 = res.gripper_grad.cpu().numpy(), res.pos_grad0.cpu().numpy()
+    gg_rel = float(np.abs(gg - g["gripper_grad"]).max()
+                   / np.abs(g["gripper_grad"]).max())
+    pg_rel = float(np.abs(pg0 - g["pos_grad0"]).max()
+                   / np.abs(g["pos_grad0"]).max())
+    d_it = int(np.abs(iters.astype(np.int64) - g["iters"]).max())
+    nonzero = int((np.abs(gg).max(axis=(1, 2)) > 0).sum())
+    log(f"[golden-adjoint] f64 cloth_N={int(g['cloth_N'])} T={T}, pad "
+        f"{float(g['dpos'][0, 0, 2]) * 1e3:.1f} mm a step, forward + default "
+        f"backward with kernels vs JAX: max |dpos| {pos_err:.3e} m (tol "
+        f"{GOLDEN_ATOL:.0e}); gripper_grad max rel err {gg_rel:.3e}, "
+        f"pos_grad0 {pg_rel:.3e} (tol {GOLDEN_ADJ_RTOL:.0e}); GMRES iters "
+        f"{iters.tolist()} vs JAX {g['iters'].tolist()}; {nonzero} steps "
+        f"with a gripper gradient; launches {launches}")
+    if not (pos_err <= GOLDEN_ATOL and gg_rel <= GOLDEN_ADJ_RTOL
+            and pg_rel <= GOLDEN_ADJ_RTOL):
+        raise AssertionError("the small adjoint disagrees with the JAX golden "
+                             "gradients")
+    if d_it > 2 or nonzero < 3 or launches["dia_spmv"] <= 0:
+        raise AssertionError(f"golden adjoint: iteration counts off by {d_it},"
+                             f" {nonzero} non-zero steps, launches {launches}")
+
+
+def rollout(spec, s0, params, device, T=None, dz=None):
     from thinshelllab_torch.engine import stepper
 
     stats = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, buf = stepper.simulate(spec, params, s0,
-                              bench_actions(T_STEPS, spec.dtype, device),
+                              bench_actions(T or T_STEPS, spec.dtype, device,
+                                            dz),
                               stats=stats)
     torch.cuda.synchronize()
     return buf, stats, time.perf_counter() - t0
+
+
+def backward(sc, spec, params, buf, **kw):
+    """seed_loss and adjoint.backward on a forward tape: (result, seconds)."""
+    from thinshelllab_torch.engine import adjoint
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = adjoint.backward(spec, params, buf, *sc.seed_loss(buf), **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def gmres_residuals(fn):
+    """Run fn() with every GMRES solve's iterations and final relative true
+    residual |b - A x| / |b| recorded (one extra operator apply a solve):
+    (fn's result, [(iterations, residual), ...] in sweep order)."""
+    from thinshelllab_torch.engine import solver
+
+    loop, out = solver._gmres_loop, []
+
+    def logged(A, M, b, tol, m, max_total=None, x0=None, return_iters=False):
+        x, it = loop(A, M, b, tol, m, max_total, x0=x0, return_iters=True)
+        rel = torch.linalg.vector_norm(b - A(x)) / torch.linalg.vector_norm(b)
+        out.append((it, float(f"{float(rel):.2e}")))
+        return (x, it) if return_iters else x
+
+    solver._gmres_loop = logged
+    try:
+        return fn(), out
+    finally:
+        solver._gmres_loop = loop
+
+
+def rel_err(a, b):
+    """max |a - b| / max |b| (max |a| where b is all zero)."""
+    scale = float(b.abs().max())
+    return float((a - b).abs().max()) / (scale if scale > 0 else 1.0)
+
+
+def adjoint_phase(sc, spec, params, buf, fwd_secs, device):
+    """The bench backward at full size in f32 on the [main] tape: a
+    warm-up backward (its gradients are the kernel path's), a timed one
+    with debug_iters, the plain path on the same tape, and the same tape
+    in f64 (printed, not gated)."""
+    from thinshelllab_torch.ops import dia_spmv as K
+
+    (res, _), resid = gmres_residuals(  # warm-up
+        lambda: backward(sc, spec, params, buf))
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    res_t, secs = backward(sc, spec, params, buf, debug_iters=True)
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device)
+    iters = res_t.pos_grad0.cpu().tolist()
+    gg, pg0 = res.gripper_grad, res.pos_grad0
+    if (tuple(gg.shape) != (T_STEPS + 1, 1, 6)
+            or pg0.shape != buf["pos"][0].shape):
+        raise AssertionError(f"gradient shapes {tuple(gg.shape)}, "
+                             f"{tuple(pg0.shape)}")
+    if gg.dtype != torch.float32 or pg0.dtype != torch.float32:
+        raise AssertionError(f"gradient types {gg.dtype}, {pg0.dtype}")
+    if not all(bool(torch.isfinite(v).all()) for v in (gg, pg0)):
+        raise AssertionError("non-finite gradients in the main backward")
+    if not float(pg0.abs().max()) > 0:
+        raise AssertionError("the residual dL/dx_0 is zero")
+    nonzero = int((gg.abs().amax(dim=(1, 2)) > 0).sum())
+    if launches["dia_spmv"] <= 0 or launches["dia_precond"] != 0:
+        raise AssertionError(f"backward launches {launches}: dia_spmv must "
+                             "run and dia_precond must not")
+    n_it = sum(iters)
+    # the kernel path twice: atomic scatter-adds sum in another order
+    rerun = rel_err(backward(sc, spec, params, buf)[0].pos_grad0, pg0)
+    log(f"[adjoint] f32 T={T_STEPS} backward with kernels on the [main] "
+        f"tape: {secs:.3f} s; fwd+bwd {T_STEPS / (fwd_secs + secs):.4f} "
+        f"steps/s (forward {fwd_secs:.3f} s); GMRES iters per step "
+        f"(t = {T_STEPS}..1) {iters}, {n_it} in all; launches {launches}, "
+        f"{launches['dia_spmv'] / n_it:.3f} dia_spmv per GMRES iteration; "
+        f"peak memory {peak / 2**20:.1f} MiB; {nonzero} steps with a gripper "
+        f"gradient, max |gripper_grad| {float(gg.abs().max()):.4e}, max "
+        f"|pos_grad0| {float(pg0.abs().max()):.4e}; kernel path run twice: "
+        f"pos_grad0 {rerun:.3e}; {contact_gap(sc, buf)}; GMRES (iterations, "
+        f"final relative residual) per step in the warm-up: {resid}")
+
+    spec_p = spec.replace(spmv="plain")
+    K.reset_launches()
+    res_p, secs_p = backward(sc, spec_p, params, buf)
+    if any(K.LAUNCHES.values()):
+        raise AssertionError(f"plain backward launched kernels: {K.LAUNCHES}")
+    e_gg = rel_err(gg, res_p.gripper_grad)
+    e_pg = rel_err(pg0, res_p.pos_grad0)
+    log(f"[adjoint] f32 plain path on the same tape: {secs_p:.3f} s; kernels "
+        f"vs plain max rel err gripper_grad {e_gg:.3e}, pos_grad0 "
+        f"{e_pg:.3e} (tol {ADJ_PLAIN_RTOL:.0e})")
+    if not (e_gg <= ADJ_PLAIN_RTOL and e_pg <= ADJ_PLAIN_RTOL):
+        raise AssertionError("kernel and plain backwards disagree")
+
+    f64_check(sc, params, buf, res, device, "[adjoint-f64]")
+    return launches, secs
+
+
+def f64_check(sc, params, buf, res, device, tag):
+    """The same tape cast to f64, backward with kernels: the f32 backward's
+    own error (printed, not gated)."""
+    spec64, _, params64 = sc.to(device, torch.float64)
+    buf64 = {k: v.double() if v.is_floating_point() else v
+             for k, v in buf.items()}
+    (res64, secs64), resid = gmres_residuals(
+        lambda: backward(sc, spec64, params64, buf64))
+    log(f"{tag} f64 backward with kernels on the same tape: {secs64:.3f} s; "
+        f"the f32 backward's max rel err against it: gripper_grad "
+        f"{rel_err(res.gripper_grad.double(), res64.gripper_grad):.3e}, "
+        f"pos_grad0 {rel_err(res.pos_grad0.double(), res64.pos_grad0):.3e} "
+        f"(printed, not gated); GMRES (iterations, final relative residual) "
+        f"per step: {resid}")
+
+
+def contact_gap(sc, buf):
+    """Where the pad's lowest vertex is against the cloth, per step."""
+    b, pos = sc.builder, buf["pos"]
+    (cs, ce), (ps, pe) = b.vrange(0), b.vrange(2)
+    return ("pad lowest z minus cloth highest z (mm) per step: " + str([
+        round(float(p[ps:pe, 2].min() - p[cs:ce, 2].max()) * 1e3, 3)
+        for p in pos]))
+
+
+def press_phase(sc, spec, s0, params, device):
+    """The full-size f32 forward+backward with the pad pressing PRESS_Z a
+    step: the gripper gradient is non-zero, and the kernel and plain
+    backwards agree on it."""
+    from thinshelllab_torch.ops import dia_spmv as K
+
+    buf, stats, secs = rollout(spec, s0, params, device, T_PRESS, PRESS_Z)
+    K.reset_launches()
+    res, secs_b = backward(sc, spec, params, buf)
+    launches = dict(K.LAUNCHES)
+    (res_p, _), resid = gmres_residuals(
+        lambda: backward(sc, spec.replace(spmv="plain"), params, buf))
+    gg, pg0 = res.gripper_grad, res.pos_grad0
+    nonzero = int((gg.abs().amax(dim=(1, 2)) > 0).sum())
+    e_gg = rel_err(gg, res_p.gripper_grad)
+    e_pg = rel_err(pg0, res_p.pos_grad0)
+    log(f"[adjoint-press] f32 T={T_PRESS}, pad {PRESS_Z * 1e3:.1f} mm a step: "
+        f"forward {secs:.3f} s (CG iters {stats['cg_iters']}), backward "
+        f"{secs_b:.3f} s, launches {launches}; {nonzero} steps with a gripper "
+        f"gradient, max |gripper_grad| {float(gg.abs().max()):.4e}; kernels "
+        f"vs plain max rel err gripper_grad {e_gg:.3e}, pos_grad0 {e_pg:.3e} "
+        f"(tol {ADJ_PLAIN_RTOL:.0e}); {contact_gap(sc, buf)}; GMRES "
+        f"(iterations, final relative residual) per step, plain path: "
+        f"{resid}")
+    if not all(bool(torch.isfinite(v).all()) for v in (gg, pg0)):
+        raise AssertionError("non-finite gradients in the pressing backward")
+    if nonzero < 1 or launches["dia_spmv"] <= 0:
+        raise AssertionError("the pressing backward has no gripper gradient")
+    if not (e_gg <= ADJ_PLAIN_RTOL and e_pg <= ADJ_PLAIN_RTOL):
+        raise AssertionError("kernel and plain pressing backwards disagree")
+    f64_check(sc, params, buf, res, device, "[adjoint-press-f64]")
+
+
+class PhaseTimer:
+    """Inclusive wall time per wrapped function, with a synchronize() on
+    both sides of each call (so the phases cost more than they do
+    unwrapped, and nested phases are counted in their callers too)."""
+
+    def __init__(self):
+        self.ms, self.calls, self._orig = {}, {}, []
+
+    def timed(self, fn, label):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.ms[label] = self.ms.get(label, 0.0) + (
+                time.perf_counter() - t0) * 1e3
+            self.calls[label] = self.calls.get(label, 0) + 1
+            return out
+
+        return run
+
+    def wrap(self, owner, name, label, factory=False):
+        """Time owner.name, or with factory=True the function it returns."""
+        fn = getattr(owner, name)
+        setattr(owner, name, (lambda *a, **k: self.timed(fn(*a, **k), label))
+                if factory else self.timed(fn, label))
+        self._orig.append((owner, name, fn))
+
+    def restore(self):
+        for owner, name, fn in reversed(self._orig):
+            setattr(owner, name, fn)
+        self._orig = []
+
+    def report(self, tag):
+        for label, ms in sorted(self.ms.items(), key=lambda kv: -kv[1]):
+            n = self.calls[label]
+            log(f"[phases] {tag} {label}: {ms:.1f} ms, {n} calls, "
+                f"{ms / n:.3f} ms per call")
+        self.ms, self.calls = {}, {}
+
+
+def phase_timers(sc, spec, s0, params, device):
+    """One more forward + backward with a synchronize() around each phase."""
+    from thinshelllab_torch.engine import (adjoint, elements, gridsolve,
+                                           solver, stepper)
+    from thinshelllab_torch.ops import spd
+
+    pt = PhaseTimer()
+    fwd = [(elements, "all_groups", "element Hessians (all_groups)"),
+           (solver, "_solve_cg_prepared_T", "PCG solve"),
+           (elements, "total_energy", "total_energy"),
+           (stepper, "build_contacts", "contacts"),
+           (elements, "assemble_residual", "assemble_residual"),
+           (solver, "prepare_solver_state", "operator build")]
+    bwd = [(adjoint, "_rebuild_contact", "contact rebuild"),
+           (elements, "all_groups", "element Hessians (all_groups)"),
+           (solver, "prepare_solver_state", "operator build"),
+           (spd, "abs_inv_3x3", "|D|^-1 blocks"),
+           (gridsolve, "add_contact_couplings", "contact couplings"),
+           (gridsolve.GridPreconditioner, "__init__", "BCR factor"),
+           (gridsolve, "extract_cloth_tridiag", "BCR factor: tridiagonal"),
+           (gridsolve, "factor_tridiag", "BCR factor: reduction"),
+           (gridsolve, "_safe_inv", "BCR factor: block inverses"),
+           (solver, "_gmres_loop", "GMRES loop"),
+           (elements, "hvp_dia", "operator apply (hvp_dia)"),
+           (gridsolve.GridPreconditioner, "apply", "BCR apply"),
+           (elements, "frozen_column_product", "frozen-column product"),
+           (adjoint, "_contact_energy_backprop", "contact chain"),
+           (adjoint, "_hinge_grads", "hinge gradients")]
+    try:
+        for owner, name, label in fwd:
+            pt.wrap(owner, name, label)
+        pt.wrap(elements, "linesearch_ef_fn", "line-search trial",
+                factory=True)
+        buf, _, secs = rollout(spec, s0, params, device)
+        pt.restore()
+        pt.report(f"forward ({secs:.3f} s with the syncs):")
+        for owner, name, label in bwd:
+            pt.wrap(owner, name, label)
+        _, secs = backward(sc, spec, params, buf)
+        pt.restore()
+        pt.report(f"backward ({secs:.3f} s with the syncs):")
+    finally:
+        pt.restore()
+
+
+def profile_phase(sc, spec, s0, params, device):
+    """One forward and one backward, each under torch.profiler: device time,
+    launches, busy share, and each kernel's share of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def traced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total_us, total_n, mine, top = 0.0, 0, {}, []
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = (getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0))
+            total_us += us
+            total_n += e.count
+            top.append((us, e.count, e.key[:60]))
+            for k in ("dia_spmv_kernel", "precond_sweep_kernel"):
+                if k in e.key:
+                    a, n = mine.get(k, (0.0, 0))
+                    mine[k] = (a + us, n + e.count)
+        if total_us <= 0:
+            raise RuntimeError("the profiler recorded no device time")
+        return out, wall, total_us, total_n, mine, sorted(top)[::-1][:6]
+
+    def report(tag, wall, total_us, total_n, mine, top=()):
+        shares = ", ".join(f"{k} {us / 1e3:.2f} ms over {n} launches = "
+                           f"{us / total_us:.4f} of device time"
+                           for k, (us, n) in sorted(mine.items()))
+        log(f"[profile] f32 T={T_STEPS} {tag} under the profiler: wall "
+            f"{wall:.3f} s, device time {total_us / 1e3:.1f} ms over "
+            f"{total_n} kernel launches, busy share "
+            f"{total_us / 1e6 / wall:.4f}; {shares or 'no DIA kernel'}")
+        for us, n, key in top:
+            log(f"[profile]   {tag}: {us / 1e3:.2f} ms over {n} launches: "
+                f"{key}")
+
+    buf, *fwd = traced(lambda: rollout(spec, s0, params, device)[0])
+    _, *bwd = traced(lambda: backward(sc, spec, params, buf))
+    report("forward", *fwd)
+    report("backward", *bwd)
+    both = {k: tuple(a + b for a, b in zip(fwd[3].get(k, (0.0, 0)),
+                                          bwd[3].get(k, (0.0, 0))))
+            for k in set(fwd[3]) | set(bwd[3])}
+    report("forward + backward", fwd[0] + bwd[0], fwd[1] + bwd[1],
+           fwd[2] + bwd[2], both)
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: CUDA is not available; the port's "
                          "smoke run needs one CUDA card")
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -227,8 +683,14 @@ def main():
 
     kres = kernel_checks(sc, device)
     golden_check(device)
+    golden_adjoint_check(device)
 
     spec, s0, params = sc.to(device, torch.float32)
+    gp = spec.dev.grid_plan
+    log(f"[scene] grid plan {[(N, M, v, len(l)) for N, M, v, l in gp]} "
+        f"(N, M, first vertex, lanes), bcr_cutoff {spec.bcr_cutoff}, "
+        f"GMRES restart {min(spec.cg_max_iter, 64)}, adjoint tol "
+        f"{spec.cg_tol if spec.adj_tol is None else spec.adj_tol}")
     buf_w, _, _ = rollout(spec, s0, params, device)  # warm-up
     torch.cuda.reset_peak_memory_stats(device)
     K.reset_launches()
@@ -273,12 +735,20 @@ def main():
     if not rel <= PLAIN_VS_KERNEL_RTOL:
         raise AssertionError(f"plain and kernel rollouts differ ({rel:.3e})")
 
+    launches_bwd, _ = adjoint_phase(sc, spec, params, buf, secs, device)
+    phase_timers(sc, spec, s0, params, device)
+    profile_phase(sc, spec, s0, params, device)
+    press_phase(sc, spec, s0, params, device)
+
     src = "thinshelllab_torch/csrc/dia_spmv.cu"
     replaces = {"dia_spmv": "thinshelllab_tpu/ops/dia_spmv.py:93",
                 "dia_precond": "thinshelllab_tpu/ops/dia_spmv.py:237"}
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=replaces[name],
-             launches=launches[name], **kres[name])
+             launches=launches[name] + launches_bwd[name],
+             launches_forward=launches[name],
+             launches_backward=launches_bwd[name], **kres[name])
         for name in ("dia_spmv", "dia_precond")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

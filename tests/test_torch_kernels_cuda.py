@@ -9,7 +9,9 @@ This file imports no JAX, so that it runs on a machine without it:
 
 (--noconftest: tests/conftest.py sets up JAX.) Inputs: the small bench
 scene's store assembled by the port at a perturbed state, and a random
-store at the full bench plan's shapes (71 offsets, NVp 6144).
+store at the full bench plan's shapes (71 offsets, NVp 6144); for the
+adjoint's (NV, 3) operator and GMRES, the true Hessian of the small and of
+the full bench scene at a perturbed state.
 """
 import pytest
 import torch
@@ -118,3 +120,87 @@ def test_bench8_rollout_launches_the_kernels(cuda):
     assert K.LAUNCHES == {"dia_spmv": 0, "dia_precond": 0}
     # CG to 1e-10 of |F| on both paths (metres; the pad moves 8e-4 m)
     assert float((buf["pos"] - ref["pos"]).abs().max()) < 1e-8
+
+
+def _adjoint_system(device, dtype, cloth_N, jitter=1e-4):
+    """The adjoint's element groups (true Hessian) of the bench scene at a
+    state perturbed by `jitter` metres, and a right-hand side on the
+    unfrozen DOFs."""
+    sc = bench_scene.make(cloth_N=cloth_N, table_n=4 if cloth_N < 70 else 12,
+                          dtype=torch.float64, hess_refresh=8)
+    spec, s0, params = sc.to(device, dtype)
+    g = torch.Generator().manual_seed(3)
+    pos = s0.pos + jitter * torch.randn(s0.pos.shape, generator=g,
+                                        dtype=torch.float64).to(device, dtype)
+    contact, _, _ = stepper.build_contacts(spec, params, pos, pos,
+                                           s0.proj_flag, s0.proj_dir)
+    groups = elements.all_groups(spec, params, pos, s0.ref_angle, contact,
+                                 with_hess=True, spd=False)
+    F = torch.randn(s0.pos.shape, generator=g, dtype=torch.float64).to(
+        device, dtype) * spec.dev.unf.to(dtype)
+    return spec, groups, F
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cloth_N", [8, 70], ids=["bench8", "bench70"])
+def test_hvp_dia_kernel_matches_plain(cuda, dtype, cloth_N):
+    """The adjoint's operator apply, with the dia_spmv kernel and without."""
+    spec, groups, F = _adjoint_system(cuda, dtype, cloth_N)
+    st = solver.prepare_solver_state(spec, groups, dtype)
+    K.reset_launches()
+    y = solver._ops_from_state(spec, st)(F)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"dia_spmv": 1, "dia_precond": 0}
+    y_ref = solver._ops_from_state(spec.replace(spmv="plain"), st)(F)
+    assert K.LAUNCHES["dia_spmv"] == 1
+    assert y.dtype == dtype and y.shape == F.shape
+    err = float((y - y_ref).abs().max() / y_ref.abs().max())
+    assert err <= RTOL[dtype], err
+
+
+# GMRES with the kernel vs plain. f64 runs to adj_tol 1e-10 (or to its
+# floor test): the solutions agree to max |dz| / max |z| <= 1e-7 (measured
+# 5e-15 on the small scene, 4e-9 on the full one). f32 stops at its
+# residual floor, which for this random right-hand side on the full scene
+# is a relative residual |F - A z| / |F| of about 5e-2 (measured on the
+# card: 4.8e-2 with the kernel after 67 iterations, 4.9e-2 plain after
+# 68, solutions 8% apart); so in f32 the two residuals are held to
+# F32_RESIDUAL and to within F32_RATIO of each other instead. The state is
+# jittered by 1e-6 m: 1e-4 m bends the full cloth's 1.4 mm cells into a
+# strongly indefinite Hessian, where f32 GMRES can leave early through its
+# stagnation exit.
+GMRES_RTOL = 1e-7
+F32_RESIDUAL, F32_RATIO = 1e-1, 2.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cloth_N", [8, 70], ids=["bench8", "bench70"])
+def test_solve_gmres_kernel_matches_plain(cuda, dtype, cloth_N):
+    spec, groups, F = _adjoint_system(cuda, dtype, cloth_N, jitter=1e-6)
+    if dtype == torch.float64:
+        spec = spec.replace(adj_tol=1e-10)
+    A = solver._ops_from_state(
+        spec, solver.prepare_solver_state(spec, groups, dtype))
+    K.reset_launches()
+    z, it = solver.solve_adjoint(spec, groups, F, return_iters=True)
+    torch.cuda.synchronize()
+    # one operator apply per iteration and one per restart
+    assert it > 0 and K.LAUNCHES["dia_spmv"] >= it + 1
+    assert K.LAUNCHES["dia_precond"] == 0
+    K.reset_launches()
+    z_ref, it_ref = solver.solve_adjoint(spec.replace(spmv="plain"), groups,
+                                         F, return_iters=True)
+    assert K.LAUNCHES["dia_spmv"] == 0
+    assert bool(torch.isfinite(z).all())
+    err = float((z - z_ref).abs().max() / z_ref.abs().max())
+    res, res_ref = (float(torch.linalg.vector_norm(F - A(v))
+                          / torch.linalg.vector_norm(F)) for v in (z, z_ref))
+    print(f"{cloth_N} {dtype}: iters {it} / {it_ref}, relative residual "
+          f"{res:.3e} / {res_ref:.3e}, max |dz| / max |z| {err:.3e}")
+    if dtype == torch.float64:
+        assert err <= GMRES_RTOL, (err, it, it_ref)
+    else:
+        assert max(res, res_ref) <= F32_RESIDUAL, (res, res_ref, it, it_ref)
+        assert max(res / res_ref, res_ref / res) <= F32_RATIO, (res, res_ref)

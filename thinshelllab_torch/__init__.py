@@ -3,9 +3,13 @@
 Module paths and function names mirror the JAX package, so each function
 here has a counterpart of the same name there. Scenes are built on the host
 in numpy (`core.builder`), moved to a device once (`SceneSpec.to`), and
-stepped by plain functions on tensors (`engine.stepper.simulate`). The two
-DIA kernels of the CG loop are CUDA C++ (`csrc/dia_spmv.cu`); their plain
-PyTorch versions sit beside their wrappers in `ops.dia_spmv`.
+stepped by plain functions on tensors (`engine.stepper.simulate`), and
+differentiated by the implicit-function-theorem adjoint
+(`engine.adjoint.backward`). The two DIA kernels are CUDA C++
+(`csrc/dia_spmv.cu`): the SpMV serves every operator apply of the forward
+CG and of the adjoint GMRES, the smoothing sweeps precondition the forward
+CG. Their plain PyTorch versions sit beside their wrappers in
+`ops.dia_spmv`.
 
 The JAX package runs its small batched contractions at
 `Precision.HIGHEST`; the port keeps float32 products in full float32 by

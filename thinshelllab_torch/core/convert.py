@@ -28,6 +28,33 @@ def torch_dtype(d) -> torch.dtype:
     return _DTYPES[np.dtype(d)]
 
 
+def _tensor(v):
+    """CPU tensor of an array leaf: floats and bools keep their type,
+    integers become int64 (the port's index type, as SceneSpec.to makes
+    them)."""
+    t = torch.as_tensor(np.array(v, copy=True))
+    if t.dtype.is_floating_point or t.dtype == torch.bool:
+        return t
+    return t.to(torch.int64)
+
+
+def buffers_from_reference(buffers):
+    """The port's trajectory tape from the JAX `stepper.simulate` buffers
+    dict: every array leaf a CPU tensor, and the stacked ContactSet under
+    "contact" (save_contacts=True) the port's ContactSet. With it both
+    adjoints run on one tape."""
+    out = {}
+    for key, v in buffers.items():
+        if dataclasses.is_dataclass(v):
+            cls = getattr(_spec, type(v).__name__)
+            v = cls(**{f.name: _tensor(getattr(v, f.name))
+                       for f in dataclasses.fields(v)})
+        else:
+            v = _tensor(v)
+        out[key] = v
+    return out
+
+
 def from_reference(obj):
     """The port's counterpart of a JAX-side spec/state/params object."""
     if obj is None or isinstance(obj, (tuple, list, int, float, str, bool)):

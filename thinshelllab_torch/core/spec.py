@@ -238,6 +238,8 @@ class DeviceConsts:
     off0: int = 0           # lane of offset 0
     par_masks: Tuple = ()   # per cloth (2, N, M) parity masks
     onehot: Any = None      # (Rn, Dr*4, n_off+1) tet-block lane placement
+    grid_plan: Tuple = ()   # gridsolve.build_grid_plan of the host spec
+    coupling_slots: Tuple = ()  # per planned cloth: (S,) contact slots or None
 
 
 @_dataclass

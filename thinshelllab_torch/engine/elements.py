@@ -1,6 +1,6 @@
-"""Element evaluation and assembly for the forward Newton solve
-(counterpart of `thinshelllab_tpu/engine/elements.py`, the subset the
-bench forward runs).
+"""Element evaluation and assembly for the forward Newton solve and the
+adjoint (counterpart of `thinshelllab_tpu/engine/elements.py`, the subset
+the bench forward and backward run).
 
 Each evaluation produces a "group": a dict with
     idx: (E, k) global vertex ids
@@ -13,8 +13,9 @@ from `vmap(jacfwd(grad))`, except the closed-form membrane Hessian.
 The operator is the hybrid DIA layout of the JAX package: a static
 (n_off, 3, 3, NVp) store applied by the `dia_spmv` kernel, the leftover
 pull slots, and the dynamic contact part (frozen-source diagonal +
-selection-matmul pairs). The CG state lives in the transposed (3, NVp)
-layout.
+selection-matmul pairs). The forward CG state lives in the transposed
+(3, NVp) layout (`*_T`); the adjoint GMRES applies the same operator to
+(NV, 3) vectors (`hvp_dia`).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from ..core.spec import ContactSet, DeviceConsts, SceneSpec
 from ..ops import dia_spmv as _spmv
 from ..ops import energies as en
 from ..ops.spd import project_psd_2x2, project_psd_method
+from . import gridsolve
 from .plans import (  # noqa: F401  (the JAX module's planner names)
     build_dia_plan,
     build_hvp_slots,
@@ -64,7 +66,12 @@ def device_consts(host: SceneSpec, spec: SceneSpec) -> DeviceConsts:
             masks.append(torch.as_tensor(np.stack([par == 0, par == 1]),
                                          dtype=dt, device=dev))
         n_off = len(plan.offsets)
+        gp = gridsolve.build_grid_plan(host)
         kw.update(
+            grid_plan=tuple(gp),
+            coupling_slots=tuple(
+                None if s is None else torch.as_tensor(s, device=dev)
+                for s in gridsolve.contact_coupling_slots(host, gp)),
             unf2=unf2, m2=m2,
             offsets_t=torch.as_tensor(plan.offsets, dtype=torch.int32,
                                       device=dev),
@@ -722,24 +729,106 @@ def blocks_to_t33(spec, B, dtype):
     return out
 
 
+def dia_apply(spec, dia, xm2):
+    """The DIA SpMV of the (3, NVp) store on a contiguous (3, NVp) vector:
+    the CUDA kernel or its plain version, see use_spmv_kernel."""
+    if use_spmv_kernel(spec, xm2):
+        return _spmv.dia_spmv(dia, xm2, spec.dia.offsets, spec.dev.offsets_t)
+    return _spmv.dia_spmv_plain(dia, xm2, spec.dia.offsets)
+
+
 def hvp_dia_static_T(spec, dia, nbr_left, x2, unf2, m2):
     """Static part of H @ x in the transposed (3, NVp) layout: the DIA
-    SpMV (CUDA kernel or its plain version, see use_spmv_kernel), the
-    leftover pull product and the inertia diagonal, frozen-masked.
-    x2: (3, NVp) zero-padded; unf2: unfrozen mask; m2: mass/dt^2."""
-    plan = spec.dia
+    SpMV (dia_apply), the leftover pull product and the inertia diagonal,
+    frozen-masked. x2: (3, NVp) zero-padded; unf2: unfrozen mask; m2:
+    mass/dt^2."""
     xm2 = x2 * unf2  # column mask
-    if use_spmv_kernel(spec, x2):
-        yT = _spmv.dia_spmv(dia, xm2, plan.offsets, spec.dev.offsets_t)
-    else:
-        yT = _spmv.dia_spmv_plain(dia, xm2, plan.offsets)
-    y2 = yT * unf2 + m2 * x2  # row mask + inertia (all DOFs)
+    y2 = dia_apply(spec, dia, xm2) * unf2 + m2 * x2  # row mask + inertia
     sl = spec.hvp_slots
     if sl is not None and sl.D > 0:
         xg = xm2[:, sl.slot_col]  # (3, R, D)
         yr = torch.einsum("rdij,jrd->ir", nbr_left, xg)
         y2 = y2.index_add(1, sl.row_ids, yr)
     return y2
+
+
+def _pull_apply(spec, nbr, xm):
+    """Leftover pull product: per-row (R, D) slot contraction of the
+    (NV+1, 3) vector xm (ghost row last)."""
+    return torch.einsum("rdij,rdj->ri", nbr, xm[spec.hvp_slots.slot_col])
+
+
+def hvp_dia_static(spec, dia, nbr_left, x):
+    """Static part of H @ x on an (NV, 3) vector (the adjoint GMRES
+    operator): the DIA SpMV (dia_apply) on the zero-padded, column-masked
+    (3, NVp) image of x, the leftover pull product and the inertia
+    diagonal, frozen-masked."""
+    unf = spec.dev.unf.to(x.dtype)
+    # to_t2 writes a fresh buffer: the kernel takes contiguous input
+    y = from_t2(spec, dia_apply(spec, dia, to_t2(spec, x * unf))) * unf
+    y = y + (spec.mass / spec.dt**2).to(x.dtype)[:, None] * x
+    sl = spec.hvp_slots
+    if sl is not None and sl.D > 0:
+        xm = torch.cat([x * unf, x.new_zeros((1, 3))])
+        y = y.index_add(0, sl.row_ids, _pull_apply(spec, nbr_left, xm))
+    return y
+
+
+def hvp_dia_contact(spec, fused, x):
+    """Dynamic contact part of H @ x on an (NV, 3) vector, frozen-masked.
+    With the contact split in `fused` (idx_con/H_con, optional Dcon and the
+    'mm' pairs' mm_S/mm_H): the frozen-source diagonal as one einsum, the
+    'mm' pairs as one-hot selection matmuls over the source body's vertex
+    slice, and only the remaining slots as gather + scatter-add."""
+    NV = spec.NV
+    unf = spec.dev.unf_p.to(x.dtype)
+    xp = torch.cat([x, x.new_zeros((1, 3))])
+    xm = xp * unf
+    yp = torch.zeros_like(xp)
+    y_diag = torch.zeros_like(x)
+    if "idx_con" in fused:
+        idx, Hd = fused["idx_con"], fused["H_con"]
+        if "Dcon" in fused:
+            y_diag = torch.einsum("nij,nj->ni", fused["Dcon"], x)
+        if "mm_S" in fused:
+            _d, mm_ranges, _g = spec.dev.contact_split
+            for (_cs, cnt, v_lo, f_vlo, f_vn), S, Hm in zip(
+                    mm_ranges, fused["mm_S"], fused["mm_H"]):
+                xf = torch.einsum("caf,fj->caj", S, xm[f_vlo : f_vlo + f_vn])
+                xq = xm[v_lo : v_lo + cnt]
+                xg = torch.cat([xf, xq[:, None, :]], dim=1)  # (cnt, 4, 3)
+                contrib = torch.einsum("eabij,ebj->eai", Hm, xg)
+                yp[v_lo : v_lo + cnt] += contrib[:, 3] * unf[v_lo : v_lo + cnt]
+                yf = torch.einsum("caf,cai->fi", S, contrib[:, :3])
+                yp[f_vlo : f_vlo + f_vn] += yf * unf[f_vlo : f_vlo + f_vn]
+    else:
+        ns = static_block_count(spec)
+        idx, Hd = fused["idx"][ns:], fused["H"][ns:]
+    if idx.shape[0] > 0:
+        contrib = torch.einsum("eabij,ebj->eai", Hd, xm[idx]) * unf[idx]
+        yp.index_add_(0, idx.reshape(-1), contrib.reshape(-1, 3))
+    return yp[:NV] + y_diag
+
+
+def hvp_dia(spec, dia, nbr_left, fused, x):
+    """H @ x with the hybrid layout on an (NV, 3) vector: DIA SpMV for the
+    regular offsets, pull gather for the leftover, the contact part."""
+    return (hvp_dia_static(spec, dia, nbr_left, x)
+            + hvp_dia_contact(spec, fused, x))
+
+
+def frozen_column_product(spec, fused, z):
+    """tmp_z_frozen[j] = - sum_{i unfrozen} H_ij z_i for frozen DOFs j
+    (reference add_H counting path, BaseScene.py:403-405). z: (NV, 3)."""
+    unf = spec.dev.unf_p.to(z.dtype)
+    fro = 1.0 - unf
+    fro[-1] = 0.0  # the ghost row
+    zp = torch.cat([z, z.new_zeros((1, 3))])
+    idx = fused["idx"]
+    contrib = torch.einsum("eabij,eai->ebj", fused["H"], zp[idx] * unf[idx])
+    tp = torch.zeros_like(zp)
+    tp.index_add_(0, idx.reshape(-1), (-contrib * fro[idx]).reshape(-1, 3))
+    return tp[: spec.NV]
 
 
 def hvp_dia_contact_T(spec, fused, x2, unf2, DconT=None):

@@ -1,5 +1,6 @@
-"""The forward linear solve and the modified-Newton loop (counterpart of
-`thinshelllab_tpu/engine/solver.py`, the path the bench forward runs).
+"""The forward linear solve, the modified-Newton loop and the adjoint's
+linear solve (counterpart of `thinshelllab_tpu/engine/solver.py`, the
+paths the bench forward and backward run).
 
   * `_solve_cg_prepared_T`: preconditioned CG in the transposed (3, NVp)
     layout on the hybrid-DIA operator. The preconditioner is the damped
@@ -10,11 +11,16 @@
     (operator rebuilt every `hess_refresh` iterations, residual fresh every
     iteration) with a backtracking line search on the fused energy+force
     evaluation.
+  * `solve_adjoint` / `solve_gmres`: restarted GMRES on the adjoint's true
+    (indefinite) Hessian, right-preconditioned by the BCR solve of each
+    cloth's tridiagonal (`gridsolve.GridPreconditioner`). The dense and
+    MINRES branches of the JAX package are not ported.
 
 The JAX package runs these loops as `lax.while_loop`s on the device. Here
 they are Python loops: every loop test reads one scalar back to the host
-(a device sync per CG iteration, per line-search trial and per Newton
-iteration), with the arithmetic unchanged.
+(a device sync per CG iteration, per line-search trial, per Newton
+iteration, per GMRES iteration and per GMRES restart), with the arithmetic
+unchanged.
 """
 from __future__ import annotations
 
@@ -22,7 +28,8 @@ import torch
 
 from ..core.spec import SceneSpec
 from ..ops import dia_spmv as _spmv
-from . import elements
+from ..ops import spd
+from . import elements, gridsolve
 
 
 def _inv3x3(A):
@@ -213,6 +220,174 @@ def _solve_cg_prepared_T(spec: SceneSpec, st, F, return_iters=False,
     if return_iters:
         return x, it
     return x
+
+
+def _ops_from_state(spec: SceneSpec, st):
+    """The full hybrid-DIA operator A on (NV, 3) vectors from a prepared
+    operator state."""
+    if spec.dia is None:
+        raise NotImplementedError("operators without a DIA plan (the pull "
+                                  "and element-scatter paths) are not "
+                                  "ported yet")
+    groups = {"idx": st["idx"], "H": st["H"]}
+    for k in ("Dcon", "idx_con", "H_con", "mm_S", "mm_H"):
+        if k in st:
+            groups[k] = st[k]
+    nbr = st.get("nbr")
+
+    def A(x):
+        return elements.hvp_dia(spec, st["dia"], nbr, groups, x)
+
+    return A
+
+
+def solve_gmres(spec: SceneSpec, groups, F, x0=None, return_iters=False):
+    """Right-preconditioned restarted GMRES on H z = F for the adjoint's
+    true (unprojected, possibly indefinite) Hessian. The preconditioner is
+    the exact in-band operator: the BCR factorization of each cloth's true
+    tridiagonal plus the cloth-source contact couplings and the contact
+    diagonal (gridsolve.GridPreconditioner), block-Jacobi |D|^-1 elsewhere."""
+    st = prepare_solver_state(spec, groups, F.dtype)
+    A = _ops_from_state(spec, st)
+    ns = elements.static_block_count(spec)
+    grid_plan = spec.dev.grid_plan  # empty: block-Jacobi |D|^-1 everywhere
+    dia_pc = gridsolve.add_contact_couplings(
+        spec, grid_plan, spec.dev.coupling_slots, st["dia"],
+        groups["idx"][ns:], groups["H"][ns:])
+    M = gridsolve.GridPreconditioner(spec, grid_plan, dia_pc,
+                                     spd.abs_inv_3x3(st["D"]),
+                                     st.get("Dc")).apply
+    restart = min(spec.cg_max_iter, 64)
+    adj_tol = spec.cg_tol if spec.adj_tol is None else spec.adj_tol
+    return _gmres_loop(A, M, F, adj_tol, restart, spec.cg_max_iter, x0=x0,
+                       return_iters=return_iters)
+
+
+def _gmres_loop(A, M, b, tol, m, max_total=None, x0=None,
+                return_iters=False):
+    """Right-preconditioned restarted GMRES(m) with a total budget of
+    max_total iterations. Each cycle solves A (M y) = r with modified
+    Gram-Schmidt plus one re-orthogonalisation over a fixed (m+1)-slot
+    basis, the accumulated Givens rotations carried as a dense (m+1, m+1)
+    product Q, and the least-squares system solved once at exit on the
+    identity-padded upper triangle.
+
+    A cycle stops early at the tolerance, on a non-finite residual, or
+    after 8 iterations that fail to improve the best residual by 3% (the
+    stagnation exit). After a cycle the true residual b - A x is formed;
+    the restarts stop at the tolerance, at the budget, when the true
+    residual exceeds 10x the cycle's estimate (the floor of the working
+    precision), or when a stagnated cycle did not halve the residual.
+
+    The JAX loops are lax.while_loops; here each loop test reads one
+    scalar on the host: a device sync per iteration and per restart."""
+    n = b.numel()
+    d = b.dtype
+    dev = b.device
+    shape = b.shape
+    b_f = b.reshape(-1)
+    bnorm = torch.linalg.vector_norm(b_f)
+    tol_abs = tol * bnorm
+    tiny = torch.finfo(d).tiny
+    if max_total is None:
+        max_total = m
+    slot = torch.arange(m + 1, device=dev)
+
+    def cycle(r):
+        """One GMRES(m) cycle on A (M y) = r: (dx, res, k, stalled)."""
+        beta = torch.linalg.vector_norm(r)
+        V = r.new_zeros((m + 1, n))
+        H = r.new_zeros((m + 1, m))
+        Q = torch.eye(m + 1, dtype=d, device=dev)
+        g = r.new_zeros((m + 1,))
+        V[0] = r / torch.clamp(beta, min=tiny)
+        g[0] = beta
+        k, res, best = 0, beta, beta
+        stall = torch.zeros((), dtype=torch.int64, device=dev)
+        while k < m and bool((res > tol_abs) & torch.isfinite(res)
+                             & (stall < 8)):  # host sync
+            w = A(M(V[k].reshape(shape))).reshape(-1)
+            # modified Gram-Schmidt against the filled basis (masked full
+            # products), then one re-orthogonalisation pass
+            mask = (slot <= k).to(d)
+            h = (V @ w) * mask
+            w = w - h @ V
+            h2 = (V @ w) * mask
+            w = w - h2 @ V
+            h = h + h2
+            wn = torch.linalg.vector_norm(w)
+            h[k + 1] = wn
+            V[k + 1] = w / torch.clamp(wn, min=tiny)
+            # pre-rotate the new column by the accumulated rotations, then
+            # the new rotation that zeroes Hc[k+1]
+            Hc = Q @ h
+            denom = torch.clamp(torch.sqrt(Hc[k] ** 2 + Hc[k + 1] ** 2),
+                                min=tiny)
+            c_new = Hc[k] / denom
+            s_new = Hc[k + 1] / denom
+            Hc[k] = denom
+            Hc[k + 1] = 0.0
+            H[:, k] = Hc
+            rk = Q[k : k + 2]
+            Q[k : k + 2] = torch.stack([c_new * rk[0] + s_new * rk[1],
+                                        -s_new * rk[0] + c_new * rk[1]])
+            gk = g[k].clone()
+            g[k] = c_new * gk
+            g[k + 1] = -s_new * gk
+            res = torch.abs(g[k + 1])
+            improved = res < 0.97 * best
+            best = torch.minimum(best, res)
+            stall = torch.where(improved, torch.zeros_like(stall), stall + 1)
+            k += 1
+
+        filled = slot[:m] < k
+        fm = filled[:, None] & filled[None, :]
+        T = torch.where(fm, H[:m, :m], torch.eye(m, dtype=d, device=dev))
+        rhs = torch.where(filled, g[:m], torch.zeros_like(g[:m]))
+        y = torch.linalg.solve_triangular(T, rhs[:, None], upper=True)[:, 0]
+        y = torch.where(filled, y, torch.zeros_like(y))
+        return M((y @ V[:m]).reshape(shape)), res, k, stall >= 8
+
+    if x0 is not None:
+        # optimally scaled warm start; the tolerance stays relative to |b|
+        x, r = _warm_split(lambda v: A(v.reshape(shape)).reshape(-1), b_f,
+                           x0.reshape(-1))
+        res = torch.linalg.vector_norm(r)
+    else:
+        x, r, res = torch.zeros_like(b_f), b_f, bnorm
+    tot = 0
+    stalled = torch.zeros((), dtype=torch.bool, device=dev)
+    while tot < max_total and bool((res > tol_abs) & torch.isfinite(res)
+                                   & ~stalled):  # host sync
+        dx, res_est, k, inner_stall = cycle(r)
+        x = x + dx.reshape(-1)
+        r = b_f - A(x.reshape(shape)).reshape(-1)
+        rn_norm = torch.linalg.vector_norm(r)
+        # a true residual an order of magnitude above the Givens estimate
+        # (equal in exact arithmetic) means the update's accuracy, not the
+        # Krylov space, is the limit: restarting cannot help
+        floor = rn_norm > 10.0 * torch.maximum(res_est, tol_abs)
+        stalled = floor | (inner_stall & (rn_norm > 0.5 * res))
+        res = rn_norm
+        tot += max(k, 1)
+    x = x.reshape(shape)
+    if return_iters:
+        return x, tot
+    return x
+
+
+def solve_adjoint(spec: SceneSpec, groups, F, x0=None, return_iters=False):
+    """Linear solve of the backward sweep: grid-preconditioned GMRES on a
+    scene with a DIA cloth plan. x0: optional warm start (the previous
+    backward step's solution), optimally scaled so that it is never worse
+    than a cold start."""
+    if spec.solver == "dense":
+        raise NotImplementedError("the dense adjoint solve (solver='dense') "
+                                  "is not ported yet")
+    if spec.dia is None or not spec.dev.grid_plan:
+        raise NotImplementedError("the MINRES adjoint solve (scenes without "
+                                  "a DIA cloth grid plan) is not ported yet")
+    return solve_gmres(spec, groups, F, x0=x0, return_iters=return_iters)
 
 
 def newton_solve(spec: SceneSpec, params, pos0, prev_pos, vel, ref_angle,

@@ -12,11 +12,12 @@ The JAX rollout is a `lax.scan`; here it is a Python loop over steps.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 
-from ..core.spec import Params, SceneSpec, SimState
+from ..core.spec import ContactSet, Params, SceneSpec, SimState
 from ..ops import collision, energies
 from . import gripper, solver
 
@@ -88,10 +89,13 @@ def time_step(spec: SceneSpec, params: Params, state: SimState, action,
 
 
 def rollout(spec: SceneSpec, params: Params, state: SimState, actions,
-            stats=None):
+            stats=None, save_contacts: bool = False):
     """Step through a trajectory. actions: (T, G, 3) / (T, G, 3) / (T, G).
     Returns (final_state, saved) with saved the per-step tuples (pos,
-    ref_angle, gripper pos, rot, dist, pad_local, yield_gate)."""
+    ref_angle, gripper pos, rot, dist, pad_local, yield_gate), plus the
+    step's ContactSet with save_contacts (the set the forward minimised
+    with, which the backward then differentiates instead of rebuilding
+    it)."""
     if spec.dev is None:
         raise TypeError("move the scene to a device first: spec.to(device)")
     saved = []
@@ -99,28 +103,32 @@ def rollout(spec: SceneSpec, params: Params, state: SimState, actions,
         state, aux = time_step(spec, params, state,
                                tuple(a[t] for a in actions), stats=stats)
         g = state.gripper
-        saved.append((state.pos, state.ref_angle, g.pos, g.rot, g.dist,
-                      g.pad_local, aux.yield_gate))
+        step = (state.pos, state.ref_angle, g.pos, g.rot, g.dist,
+                g.pad_local, aux.yield_gate)
+        saved.append(step + (aux.contact,) if save_contacts else step)
     return state, saved
 
 
 def simulate(spec: SceneSpec, params: Params, state0: SimState, actions,
-             stats=None):
+             stats=None, save_contacts: bool = False):
     """Run a rollout and return (final_state, buffers) with buffers[t] the
     state after step t (buffers[0] = initial), the reference's trajectory
     tape layout. `stats` (a dict) collects solver counts (see
-    solver.newton_solve)."""
-    final, saved = rollout(spec, params, state0, actions, stats=stats)
-    return final, _assemble_buffers(state0, final, saved)
+    solver.newton_solve). save_contacts adds buffers["contact"], the
+    per-step ContactSets stacked (index t-1 is the set step t used)."""
+    final, saved = rollout(spec, params, state0, actions, stats=stats,
+                           save_contacts=save_contacts)
+    return final, _assemble_buffers(state0, final, saved, save_contacts)
 
 
-def _assemble_buffers(state0: SimState, final: SimState, saved):
+def _assemble_buffers(state0: SimState, final: SimState, saved,
+                      save_contacts: bool = False):
     cols = list(zip(*saved))
 
     def prepend(x0, xs):
         return torch.stack([x0, *xs])
 
-    return {
+    buffers = {
         "pos": prepend(state0.pos, cols[0]),
         "ref_angle": prepend(state0.ref_angle, cols[1]),
         "gripper_pos": prepend(state0.gripper.pos, cols[2]),
@@ -133,3 +141,8 @@ def _assemble_buffers(state0: SimState, final: SimState, saved):
         "final_proj_flag": final.proj_flag,
         "final_proj_dir": final.proj_dir,
     }
+    if save_contacts:
+        buffers["contact"] = ContactSet(**{
+            f.name: torch.stack([getattr(c, f.name) for c in cols[7]])
+            for f in dataclasses.fields(ContactSet)})
+    return buffers

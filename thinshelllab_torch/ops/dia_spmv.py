@@ -1,6 +1,7 @@
-"""The hybrid-DIA SpMV and the smoothed block-Jacobi preconditioner of the
-forward CG loop: CUDA kernel wrappers, their plain PyTorch versions and
-launch counters.
+"""The hybrid-DIA SpMV (every operator apply of the forward CG and the
+adjoint GMRES) and the smoothed block-Jacobi preconditioner of the forward
+CG: CUDA kernel wrappers, their plain PyTorch versions and launch
+counters.
 
 These replace the two Pallas TPU kernels of
 `thinshelllab_tpu/ops/dia_spmv.py` (`dia_spmv`, `dia_precond`). The CUDA

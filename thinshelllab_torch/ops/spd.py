@@ -1,5 +1,7 @@
-"""Batched PSD-ification of small symmetric blocks (counterpart of
-`thinshelllab_tpu/ops/spd.py`, the parts the forward Newton solve runs)."""
+"""Batched PSD-ification of small symmetric blocks and the closed-form
+|D|^-1 of the adjoint preconditioner (counterpart of
+`thinshelllab_tpu/ops/spd.py`, the parts the bench forward and backward
+run)."""
 from __future__ import annotations
 
 import torch
@@ -54,6 +56,71 @@ def project_psd_method(H, method: str):
     raise NotImplementedError(
         f"spd_method={method!r}: the eigenvalue-clamp projection is not "
         "ported yet; the bench scene uses 'shift'")
+
+
+def _eigvals_sym3(D):
+    """Closed-form (trigonometric Cardano) eigenvalues of batched symmetric
+    3x3 blocks, ascending: shift by the trace mean q, scale by
+    p = sqrt(tr((D - qI)^2) / 6), and the eigenvalues of the normalised
+    B = (D - qI) / p are 2 cos((acos(det(B)/2) + 2 pi k) / 3)."""
+    a, b, c = D[..., 0, 0], D[..., 1, 1], D[..., 2, 2]
+    d, e, f = D[..., 0, 1], D[..., 1, 2], D[..., 0, 2]
+    q = (a + b + c) / 3.0
+    p2 = ((a - q) ** 2 + (b - q) ** 2 + (c - q) ** 2
+          + 2.0 * (d * d + e * e + f * f))
+    tiny = torch.finfo(D.dtype).tiny
+    p = torch.sqrt(torch.clamp(p2 / 6.0, min=tiny))
+    a_, b_, c_ = (a - q) / p, (b - q) / p, (c - q) / p
+    d_, e_, f_ = d / p, e / p, f / p
+    detB = (a_ * (b_ * c_ - e_ * e_) - d_ * (d_ * c_ - e_ * f_)
+            + f_ * (d_ * e_ - b_ * f_))
+    r = torch.clamp(detB / 2.0, -1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+    lam_hi = q + 2.0 * p * torch.cos(phi)
+    lam_lo = q + 2.0 * p * torch.cos(phi + 2.0943951023931953)
+    lam_mid = 3.0 * q - lam_hi - lam_lo
+    # p2 ~ 0 (scalar matrix): all eigenvalues are q exactly
+    scalar = p2 <= 6.0 * tiny
+    lam_hi = torch.where(scalar, q, lam_hi)
+    lam_mid = torch.where(scalar, q, lam_mid)
+    lam_lo = torch.where(scalar, q, lam_lo)
+    return torch.stack([lam_lo, lam_mid, lam_hi], dim=-1)
+
+
+def abs_inv_3x3(D, floor_rel=1e-6):
+    """Batched |D|^-1 of symmetric 3x3 blocks without an eigenvector solve:
+    f(D) with f(lam) = 1 / max(|lam|, floor) is a degree-2 polynomial in D
+    (Cayley-Hamilton), built from the closed-form eigenvalues by Newton
+    divided differences,
+
+        f(D) = f(l1) I + f[l1,l2] (D - l1 I)
+               + f[l1,l2,l3] (D - l1 I)(D - l2 I),
+
+    with guarded (sign-preserving) denominators where eigenvalues cluster.
+    The block-Jacobi part of the adjoint GMRES preconditioner."""
+    dt = D.dtype
+    Ds = 0.5 * (D + D.transpose(-1, -2))
+    lam = _eigvals_sym3(Ds)
+    mx = torch.amax(torch.abs(lam), dim=-1, keepdim=True)
+    tiny = torch.finfo(dt).tiny
+    floor = floor_rel * mx + tiny
+    fl = 1.0 / torch.maximum(torch.abs(lam), floor)
+    l1, l2, l3 = lam[..., 0], lam[..., 1], lam[..., 2]
+    f1, f2, f3 = fl[..., 0], fl[..., 1], fl[..., 2]
+    gscale = torch.finfo(dt).eps * mx[..., 0] + tiny
+
+    def _gdiv(num, den):
+        mag = torch.maximum(torch.abs(den), gscale)
+        return num / torch.where(den < 0, -mag, mag)
+
+    c1 = _gdiv(f2 - f1, l2 - l1)
+    c2 = _gdiv(_gdiv(f3 - f2, l3 - l2) - c1, l3 - l1)
+    eye = torch.eye(3, dtype=dt, device=D.device)
+    M1 = Ds - l1[..., None, None] * eye
+    M2 = Ds - l2[..., None, None] * eye
+    out = (f1[..., None, None] * eye + c1[..., None, None] * M1
+           + c2[..., None, None] * torch.matmul(M1, M2))
+    return 0.5 * (out + out.transpose(-1, -2))
 
 
 def value_grad_hess(energy_fn, argnum: int = 0):
