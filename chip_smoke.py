@@ -2,7 +2,10 @@
 
 Builds the two DIA kernels (csrc/dia_spmv.cu) with nvcc, holds each against
 its plain PyTorch version (and times a PyTorch sparse product beside
-dia_spmv) on the full bench scene's assembled operator, holds a small f64
+dia_spmv) on the full bench scene's assembled operator, with the L2 warm
+from the call before and cold (a 64 MiB buffer written between calls),
+holds the preconditioner against its plain version on a store that
+overflows the card's shared memory as well, holds a small f64
 rollout and a small f64 forward+backward against the JAX package's saved
 positions and gradients (tests/data/bench8_golden.npz,
 tests/data/bench8_adjoint_golden.npz), then runs the bench scene's main
@@ -70,6 +73,11 @@ T_PRESS, PRESS_Z = 4, -2e-3
 # and float32 FLOP/s outside the tensor cores, at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# written between calls for a cold-L2 time: larger than the 50 MB L2
+FLUSH_BYTES = 64 * 2**20
+# a store whose f32 slice per CTA overflows shared memory: the bench's 71
+# offsets over 16384 rows (128 rows a CTA, 46 of 71 lanes held on an H100)
+SPILL_NVP = 16384
 
 
 def log(msg):
@@ -99,24 +107,35 @@ def call_ms(fn, n=60, warmup=5):
     return a.elapsed_time(b) / n
 
 
-def device_ms(fn, n=60):
+def device_ms(fn, n=60, key=None, cold=False, tries=3):
     """Device time per call (ms): the summed time of every CUDA kernel the
-    n calls ran, from the profiler's trace of the card."""
+    n calls ran (of those whose name holds `key`, if given), from the
+    profiler's trace of the card. cold: FLUSH_BYTES are written between
+    calls, so that each call finds its inputs outside L2. A trace that holds
+    none of the kernels is taken again, up to `tries` traces in all."""
     from torch.profiler import ProfilerActivity, profile
 
+    flush = (torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                         device="cuda") if cold else None)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / 1e3 / n
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if cold:
+                    flush.fill_(1.0)
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0)
+                 for e in events if key is None or key in e.key)
+        if us > 0:
+            return us / 1e3 / n
+        log(f"[profile] no device time of {key or 'any kernel'} in a trace "
+            f"of {[e.key[:50] for e in events]}")
+    raise RuntimeError("the profiler recorded no device time")
 
 
 def operator_inputs(sc, device, dtype):
@@ -192,11 +211,59 @@ def library_spmv(dia, x2, offsets):
     return None, None, "; ".join(errors)
 
 
+def precond_geometry(K, device, NVp, offsets, dtype):
+    """The preconditioner's launch geometry as the wrapper sizes it, and a
+    line of text that names it."""
+    plan = K.device_precond_plan(device.index, NVp, tuple(offsets), dtype)
+    text = (f"rows per CTA {plan.rows}, grid {plan.grid} CTAs of "
+            f"{plan.threads} threads, {plan.staged} of {len(offsets)} lanes "
+            f"staged, {plan.smem_bytes} B of shared memory per CTA")
+    return plan, text
+
+
+def spill_check(device):
+    """The preconditioner on a random f32 store of the bench's offsets over
+    SPILL_NVP rows, whose slice per CTA does not fit shared memory."""
+    from thinshelllab_torch.ops import dia_spmv as K
+    from thinshelllab_torch.scenes import bench_scene
+
+    offs = bench_scene.make(cloth_N=70, table_n=12).spec.dia.offsets
+    rng = np.random.default_rng(1)
+    n_off, dtype = len(offs), torch.float32
+
+    def t(*shape, scale=1.0):
+        return torch.as_tensor(rng.normal(size=shape) * scale, dtype=dtype,
+                               device=device)
+
+    dia, dinv = t(n_off, 3, 3, SPILL_NVP), t(3, 3, SPILL_NVP, scale=0.1)
+    unf2 = torch.as_tensor(rng.random((3, SPILL_NVP)) > 0.1, dtype=dtype,
+                           device=device)
+    r2 = t(3, SPILL_NVP) * unf2
+    plan, geo = precond_geometry(K, device, SPILL_NVP, offs, dtype)
+    if plan.staged >= n_off:
+        raise AssertionError(f"the spill store fits shared memory: {geo}")
+    K.reset_launches()
+    z = K.dia_precond(dia, r2, unf2, dinv, offs, 0.8, 3)
+    torch.cuda.synchronize()
+    launches = K.LAUNCHES["dia_precond"]
+    zp = K.dia_precond_plain(dia, r2, unf2, dinv, offs, 0.8, 3)
+    rel = float((z - zp).abs().max() / zp.abs().max())
+    ms = device_ms(lambda: K.dia_precond(dia, r2, unf2, dinv, offs, 0.8, 3))
+    log(f"[kernel] dia_precond float32 spill store {tuple(dia.shape)}: {geo};"
+        f" {launches} launch per call; max rel err {rel:.3e} (tol "
+        f"{KERNEL_RTOL[dtype]:.0e}); device time per call {ms:.4f} ms")
+    if launches != 1 or not rel <= KERNEL_RTOL[dtype]:
+        raise AssertionError(f"dia_precond on the spill store: {launches} "
+                             f"launches, error {rel:.3e}")
+
+
 def kernel_checks(sc, device):
     from thinshelllab_torch.ops import dia_spmv as K
 
     rng = np.random.default_rng(0)
     out = {}
+    keys = {"dia_spmv": "dia_spmv_kernel",
+            "dia_precond": "dia_precond_kernel"}
     for dtype in (torch.float32, torch.float64):
         spec, dia, dia_pre, dinv = operator_inputs(sc, device, dtype)
         unf2 = spec.dev.unf2
@@ -216,21 +283,33 @@ def kernel_checks(sc, device):
                                             sweeps)),
         }
         for name, (kern, plain) in cases.items():
-            yk, yp = kern(), plain()
+            K.reset_launches()
+            yk = kern()
             torch.cuda.synchronize()
+            per_call = K.LAUNCHES[name]
+            yp = plain()
             abs_err = float((yk - yp).abs().max())
             rel = abs_err / float(yp.abs().max())
             tol = KERNEL_RTOL[dtype]
             ms, plain_ms = device_ms(kern), device_ms(plain)
+            cold_ms = device_ms(kern, 30, key=keys[name], cold=True)
             call, plain_call = call_ms(kern), call_ms(plain)
+            geo = ""
+            if name == "dia_precond":
+                plan, geo = precond_geometry(K, device, NVp, offs, dtype)
+                geo = f"{geo}; "
             log(f"[kernel] {name} {str(dtype)[6:]} shape {tuple(dia.shape)}: "
-                f"max rel err {rel:.3e} (tol {tol:.0e}), max abs err "
-                f"{abs_err:.3e}; device time per call: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms; per call between CUDA events: "
-                f"kernel {call:.4f} ms, plain {plain_call:.4f} ms (60 calls)")
+                f"{geo}{per_call} launch per call; max rel err {rel:.3e} "
+                f"(tol {tol:.0e}), max abs err {abs_err:.3e}; device time "
+                f"per call: kernel {ms:.4f} ms with a warm L2, {cold_ms:.4f} "
+                f"ms with a cold L2, plain {plain_ms:.4f} ms; per call "
+                f"between CUDA events: kernel {call:.4f} ms, plain "
+                f"{plain_call:.4f} ms (60 calls)")
             if not rel <= tol:
                 raise AssertionError(f"{name} {dtype}: kernel disagrees with "
                                      f"its plain version ({rel:.3e} > {tol})")
+            if per_call != 1:
+                raise AssertionError(f"{name}: {per_call} launches per call")
             it = dia.element_size()
             if name == "dia_spmv":
                 # store, x in, y out; 2 operations per store entry
@@ -263,7 +342,13 @@ def kernel_checks(sc, device):
             if dtype == torch.float32:
                 out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                                  bound_ms=b_ms, bound_by=b_by,
-                                 library_ms=lib_ms)
+                                 library_ms=lib_ms, cold_ms=cold_ms,
+                                 launches_per_call=per_call)
+                if name == "dia_precond":
+                    out[name].update(rows_per_cta=plan.rows, grid=plan.grid,
+                                     staged_lanes=plan.staged,
+                                     smem_bytes_per_cta=plan.smem_bytes)
+    spill_check(device)
     return out
 
 
@@ -617,7 +702,7 @@ def profile_phase(sc, spec, s0, params, device):
             total_us += us
             total_n += e.count
             top.append((us, e.count, e.key[:60]))
-            for k in ("dia_spmv_kernel", "precond_sweep_kernel"):
+            for k in ("dia_spmv_kernel", "dia_precond_kernel"):
                 if k in e.key:
                     a, n = mine.get(k, (0.0, 0))
                     mine[k] = (a + us, n + e.count)
@@ -693,9 +778,19 @@ def main():
         f"{spec.cg_tol if spec.adj_tol is None else spec.adj_tol}")
     buf_w, _, _ = rollout(spec, s0, params, device)  # warm-up
     torch.cuda.reset_peak_memory_stats(device)
-    K.reset_launches()
-    buf, stats, secs = rollout(spec, s0, params, device)
-    launches = dict(K.LAUNCHES)
+    precond_calls, wrapper = [0], K.dia_precond
+
+    def counted(*a, **k):
+        precond_calls[0] += 1
+        return wrapper(*a, **k)
+
+    K.dia_precond = counted  # the CG preconditioner's calls
+    try:
+        K.reset_launches()
+        buf, stats, secs = rollout(spec, s0, params, device)
+        launches = dict(K.LAUNCHES)
+    finally:
+        K.dia_precond = wrapper
     peak = torch.cuda.max_memory_allocated(device)
     pos = buf["pos"]
     cloth_nv = (70 + 1) ** 2
@@ -707,11 +802,15 @@ def main():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "main path")
+    if launches["dia_precond"] != precond_calls[0]:
+        raise AssertionError(f"{launches['dia_precond']} dia_precond launches"
+                             f" for {precond_calls[0]} preconditioner calls")
     reward = float(sc.reward({"pos": pos}))
     log(f"[main] f32 T={T_STEPS} with kernels: {T_STEPS / secs:.4f} steps/s "
         f"({secs:.3f} s), Newton iters {stats['newton_iters']}, operator "
         f"builds {stats['hess_builds']}, CG iters {stats['cg_iters']}, "
-        f"line-search trials {stats['ls_trials']}, launches {launches}, peak "
+        f"line-search trials {stats['ls_trials']}, CG preconditioner calls "
+        f"{precond_calls[0]}, launches {launches}, peak "
         f"memory {peak / 2**20:.1f} MiB, reward -sum(z_cloth) {reward:.6f}")
 
     spec_p = spec.replace(spmv="plain")

@@ -8,11 +8,16 @@ This file imports no JAX, so that it runs on a machine without it:
         tests/test_torch_kernels_cuda.py
 
 (--noconftest: tests/conftest.py sets up JAX.) Inputs: the small bench
-scene's store assembled by the port at a perturbed state, and a random
-store at the full bench plan's shapes (71 offsets, NVp 6144); for the
+scene's store assembled by the port at a perturbed state, and random
+stores at the full bench plan's shapes (71 offsets, NVp 6144), at a row
+count that is not a multiple of the preconditioner's rows per CTA, and
+at NVp 16384, whose f32 store overflows the card's shared memory (the
+preconditioner then reads its last lanes from global memory); for the
 adjoint's (NV, 3) operator and GMRES, the true Hessian of the small and of
 the full bench scene at a perturbed state.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -52,15 +57,33 @@ def _small_operator(device, dtype):
     return spec.dia.offsets, st["dia"], dia_pre, dinv, spec.dev.unf2
 
 
-def _bench_shaped_operator(device, dtype):
-    plan = bench_scene.make(cloth_N=70, table_n=12).spec.dia
+def _random_operator(device, dtype, offsets, NVp):
     g = torch.Generator().manual_seed(1)
-    NVp, n_off = plan.NVp, len(plan.offsets)
+    n_off = len(offsets)
     dia = torch.randn((n_off, 3, 3, NVp), generator=g, dtype=torch.float64)
     dinv = torch.randn((3, 3, NVp), generator=g, dtype=torch.float64) * 0.1
     unf2 = (torch.rand((3, NVp), generator=g) > 0.1).double()
     t = [a.to(device, dtype) for a in (dia, dia, dinv, unf2)]
-    return (plan.offsets, *t)
+    return (offsets, *t)
+
+
+def _bench_offsets():
+    return bench_scene.make(cloth_N=70, table_n=12).spec.dia.offsets
+
+
+def _bench_shaped_operator(device, dtype):
+    return _random_operator(device, dtype, _bench_offsets(), 6144)
+
+
+def _ragged_operator(device, dtype):
+    """NVp 6004: 125 CTAs of 48 rows and a last one of 4."""
+    return _random_operator(device, dtype, _bench_offsets(), 6004)
+
+
+def _spilling_operator(device, dtype):
+    """71 lanes over NVp 16384: 128 rows a CTA, whose f32 slice (327 KB)
+    overflows the shared memory of an SM."""
+    return _random_operator(device, dtype, _bench_offsets(), 16384)
 
 
 @pytest.mark.cuda
@@ -77,13 +100,73 @@ def test_kernels_match_plain(cuda, dtype, make):
     y = K.dia_spmv(dia, x2, offs)
     z = K.dia_precond(dia_pre, x2, unf2, dinv, offs, w, sweeps)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {"dia_spmv": 1, "dia_precond": sweeps + 1}
+    assert K.LAUNCHES == {"dia_spmv": 1, "dia_precond": 1}
     y_ref = K.dia_spmv_plain(dia, x2, offs)
     z_ref = K.dia_precond_plain(dia_pre, x2, unf2, dinv, offs, w, sweeps)
     for got, ref in ((y, y_ref), (z, z_ref)):
         assert got.dtype == dtype and got.shape == ref.shape
         err = float((got - ref).abs().max() / ref.abs().max())
         assert err <= RTOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweeps", [0, 1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("make", [_small_operator, _bench_shaped_operator,
+                                  _ragged_operator, _spilling_operator],
+                         ids=["bench8", "bench70_shapes", "ragged6004",
+                              "spill16384"])
+def test_precond_kernel_matches_plain(cuda, dtype, make, sweeps):
+    """One launch per call, for either parity of the ping-pong buffers, on
+    stores that fit, do not fit, and do not split evenly into CTAs."""
+    offs, _, dia_pre, dinv, unf2 = make(cuda, dtype)
+    g = torch.Generator().manual_seed(4)
+    r2 = torch.randn(unf2.shape, generator=g, dtype=torch.float64).to(
+        cuda, dtype) * unf2
+    plan = K.device_precond_plan(cuda.index, r2.shape[1], tuple(offs), dtype)
+    K.reset_launches()
+    z = K.dia_precond(dia_pre, r2, unf2, dinv, offs, 0.8, sweeps)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"dia_spmv": 0, "dia_precond": 1}
+    z_ref = K.dia_precond_plain(dia_pre, r2, unf2, dinv, offs, 0.8, sweeps)
+    assert z.dtype == dtype and z.shape == z_ref.shape
+    err = float((z - z_ref).abs().max() / z_ref.abs().max())
+    print(f"{make.__name__} {dtype} sweeps {sweeps}: {plan}, err {err:.3e}")
+    assert err <= RTOL[dtype], (err, plan)
+    if make is _spilling_operator and dtype == torch.float32:
+        assert plan.staged < len(offs)
+
+
+@pytest.mark.cuda
+def test_precond_plan_on_the_card(cuda):
+    """The f32 bench store is held whole: one CTA per SM of 48 rows."""
+    offs = _bench_offsets()
+    plan = K.device_precond_plan(cuda.index, 6144, tuple(offs),
+                                 torch.float32)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan.grid <= sms and plan.staged == len(offs), plan
+    if sms == 132:
+        assert (plan.rows, plan.grid) == (48, 128), plan
+    f64 = K.device_precond_plan(cuda.index, 6144, tuple(offs), torch.float64)
+    assert 0 < f64.staged < len(offs), f64
+
+
+@pytest.mark.cuda
+def test_precond_launch_failures_raise(cuda):
+    """A grid that cannot be co-resident, or a geometry that does not cover
+    the rows, raises; nothing falls back."""
+    offs, _, dia_pre, dinv, unf2 = _bench_shaped_operator(cuda, torch.float32)
+    offs_t = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    plan = K.device_precond_plan(cuda.index, 6144, tuple(offs),
+                                 torch.float32)
+    # 1536 CTAs of 4 rows, each claiming the whole shared-memory budget
+    wide = dataclasses.replace(plan, rows=4, grid=1536)
+    short = dataclasses.replace(plan, grid=plan.grid - 1)
+    K.reset_launches()
+    for bad in (wide, short):
+        with pytest.raises(RuntimeError):
+            K._precond_launch(bad, dia_pre, unf2, unf2, dinv, offs_t, 0.8, 3)
+    assert K.LAUNCHES["dia_precond"] == 0
 
 
 @pytest.mark.cuda

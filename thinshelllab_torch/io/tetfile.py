@@ -1,8 +1,8 @@
 """TetGen-format .node/.ele/.face parsers (counterpart of
 `thinshelllab_tpu/io/tetfile.py`).
 
-The mesh files live once in the repository, under `thinshelllab_tpu/data/`;
-they are read here by path, without importing that package.
+The tactile pad's mesh files (`tactile.node/.ele/.face`) are kept in this
+package's own `data/` directory.
 """
 from __future__ import annotations
 
@@ -11,8 +11,7 @@ import os
 import numpy as np
 
 _DATA_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "thinshelllab_tpu", "data")
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 
 
 def data_path(name: str) -> str:

@@ -9,14 +9,25 @@ source is `thinshelllab_torch/csrc/dia_spmv.cu`; it is compiled with nvcc
 for sm_90a into `thinshelllab_torch/_build/` at first use (rebuilt when the
 source is newer than the library) and loaded with ctypes.
 
+The preconditioner is one persistent cooperative launch per call. The TPU
+kernel ran its sweeps as one grid whose sequential order was the barrier
+between them; on the card every CTA stays resident, a grid-wide barrier
+(`grid.sync()`) separates the sweeps, and each CTA keeps its rows' slice of
+the store in shared memory, so the store is read from HBM once per call
+instead of once per sweep. `precond_plan` sizes that launch (rows per CTA,
+grid, threads, staged lanes, shared memory); where a slice does not fit,
+the kernel reads the lanes past the staged ones from global memory in
+every sweep.
+
 A wrapper runs its kernel on a CUDA tensor and its plain version on a CPU
-tensor; a failed build or launch raises. `LAUNCHES` counts kernel launches
-(one per CUDA kernel launched, so a `dia_precond` call with `sweeps` sweeps
-counts sweeps + 1).
+tensor; a failed build, occupancy query or launch raises. `LAUNCHES`
+counts kernel launches: one per `dia_spmv` and one per `dia_precond` call.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import os
 import shutil
 import subprocess
@@ -80,13 +91,20 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        ip = ctypes.POINTER(ctypes.c_int)
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"tsl_dia_spmv_{suffix}")
             fn.argtypes = [p, p, p, i, i, p, p]
             fn.restype = i
-            fn = getattr(lib, f"tsl_dia_precond_sweep_{suffix}")
-            fn.argtypes = [p, p, p, p, p, p, p, i, i, d, i, p]
+            fn = getattr(lib, f"tsl_dia_precond_{suffix}")
+            fn.argtypes = [p, p, p, p, p, p, p, i, i, d, i, i, i, i, i, i, i,
+                           i, p]
             fn.restype = i
+            fn = getattr(lib, f"tsl_dia_precond_occupancy_{suffix}")
+            fn.argtypes = [i, i, ip]
+            fn.restype = i
+        lib.tsl_device_limits.argtypes = [i, ip, ip]
+        lib.tsl_device_limits.restype = i
         _lib = lib
     return _lib
 
@@ -178,10 +196,97 @@ def dia_precond_plain(dia_pre, r2, unf2, dinv, offsets, w, sweeps):
     return z
 
 
+@dataclasses.dataclass(frozen=True)
+class PrecondPlan:
+    """Launch geometry of the preconditioner kernel. CTA b owns rows
+    [b * rows, min((b + 1) * rows, NVp)); its thread item (row, g) sums
+    offset lanes g, g + groups, ... of that row; lanes below `staged` are
+    held in shared memory, the rest read from global memory every sweep."""
+    rows: int        # R, a multiple of 4 (16-byte row slices)
+    grid: int        # CTAs, all co-resident
+    groups: int      # offset groups per row
+    threads: int     # per CTA, whole warps
+    staged: int      # leading offset lanes held in shared memory
+    max_off: int     # P: a CTA's z window is rows + 2 P rows
+    smem_bytes: int  # dynamic shared memory per CTA
+
+
+# thread items (row, offset group) a CTA aims for
+TARGET_THREADS = 512
+
+
+def precond_smem_bytes(rows, groups, staged, max_off, n_off, itemsize):
+    """Shared memory of one CTA (precond_layout in the .cu): the staged
+    store [staged * 9][rows], r, unf and D^-1 of its rows [15][rows], the
+    groups' partial sums [3][groups][rows], the z window
+    [3][rows + 2 max_off] and the offset table (int32)."""
+    n_t = (9 * staged * rows + 15 * rows + 3 * groups * rows
+           + 3 * (rows + 2 * max_off))
+    return n_t * itemsize + 4 * n_off
+
+
+def precond_plan(NVp, n_off, itemsize, sms, smem_limit, max_abs_off,
+                 blocks_per_sm=1):
+    """The preconditioner's launch geometry for a store of n_off lanes over
+    NVp rows of `itemsize`-byte values, on a card of `sms` SMs whose blocks
+    may use `smem_limit` bytes of shared memory, holding `blocks_per_sm`
+    CTAs that claim that much (1 on Hopper).
+
+    Rows per CTA: the smallest multiple of 4 for which ceil(NVp / R) CTAs
+    fit on the card at once (one persistent CTA per SM at the bench; fewer,
+    larger CTAs also re-read fewer halo rows of z). Staged lanes: as many as
+    the budget left after the CTA's other shared arrays holds."""
+    if NVp <= 0 or NVp % 4:
+        raise ValueError(f"NVp {NVp}: the kernel takes a positive multiple "
+                         "of 4 rows")
+    slots = sms * blocks_per_sm
+    if slots <= 0:
+        raise ValueError(f"{sms} SMs x {blocks_per_sm} CTAs: no CTA fits")
+    rows = 4 * -(-NVp // (4 * slots))
+    groups = max(1, min(n_off, TARGET_THREADS // rows))
+    threads = min(1024, 32 * -(-(rows * groups) // 32))
+
+    def smem(staged):
+        return precond_smem_bytes(rows, groups, staged, max_abs_off, n_off,
+                                  itemsize)
+
+    if smem(0) > smem_limit:
+        raise ValueError(f"a CTA of {rows} rows with a window of "
+                         f"{rows + 2 * max_abs_off} rows needs {smem(0)} "
+                         f"bytes of shared memory, over {smem_limit}")
+    staged = min(n_off, (smem_limit - smem(0)) // (9 * rows * itemsize))
+    return PrecondPlan(rows=rows, grid=-(-NVp // rows), groups=groups,
+                       threads=threads, staged=staged, max_off=max_abs_off,
+                       smem_bytes=smem(staged))
+
+
+def _int_out(fn, *args):
+    out = [ctypes.c_int(0) for _ in range(fn.argtypes.count(
+        ctypes.POINTER(ctypes.c_int)))]
+    _raise_on(fn(*args, *(ctypes.byref(v) for v in out)), fn.__name__)
+    return [v.value for v in out]
+
+
+@functools.lru_cache(maxsize=None)
+def device_precond_plan(device_index, NVp, offsets, dtype):
+    """precond_plan for the card `device_index`, from its SM count and
+    shared-memory limit, with the occupancy of a CTA that claims the whole
+    per-block budget as CUDA reports it."""
+    lib = _load()
+    it = torch.empty((), dtype=dtype).element_size()
+    with torch.cuda.device(device_index):
+        sms, smem_limit = _int_out(lib.tsl_device_limits, device_index)
+        occ, = _int_out(getattr(lib, f"tsl_dia_precond_occupancy_"
+                                     f"{_SUFFIX[dtype]}"),
+                        TARGET_THREADS, smem_limit)
+    return precond_plan(NVp, len(offsets), it, sms, smem_limit,
+                        max(abs(int(o)) for o in offsets), blocks_per_sm=occ)
+
+
 def dia_precond(dia_pre, r2, unf2, dinv, offsets, w, sweeps, offsets_t=None):
-    """Smoothed block-Jacobi preconditioner z = M^-1 r: the CUDA kernels for
-    CUDA tensors (one launch for sweep 0, one per later sweep, z ping-ponged
-    between two buffers), dia_precond_plain for CPU tensors."""
+    """Smoothed block-Jacobi preconditioner z = M^-1 r: one cooperative
+    launch of the CUDA kernel for CUDA tensors (z ping-ponged between two
+    buffers inside it), dia_precond_plain for CPU tensors."""
     if not r2.is_cuda:
         return dia_precond_plain(dia_pre, r2, unf2, dinv, offsets, w, sweeps)
     n_off, NVp = len(offsets), r2.shape[1]
@@ -193,15 +298,25 @@ def dia_precond(dia_pre, r2, unf2, dinv, offsets, w, sweeps, offsets_t=None):
     _check("unf2", unf2, (3, NVp), dt, dev)
     _check("dinv", dinv, (3, 3, NVp), dt, dev)
     offsets_t = _offsets_table(offsets, offsets_t, dev)
-    fn = getattr(_load(), f"tsl_dia_precond_sweep_{_SUFFIX[dt]}")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    z_in, z_out = torch.empty_like(r2), torch.empty_like(r2)
-    for k in range(sweeps + 1):
-        err = fn(dia_pre.data_ptr(), r2.data_ptr(), unf2.data_ptr(),
-                 dinv.data_ptr(), z_in.data_ptr(), z_out.data_ptr(),
-                 offsets_t.data_ptr(), n_off, NVp, float(w), int(k == 0),
-                 stream)
-        _raise_on(err, f"dia_precond sweep {k} launch")
-        LAUNCHES["dia_precond"] += 1
-        z_in, z_out = z_out, z_in
-    return z_in
+    plan = device_precond_plan(dev.index if dev.index is not None
+                               else torch.cuda.current_device(), NVp,
+                               tuple(offsets), dt)
+    return _precond_launch(plan, dia_pre, r2, unf2, dinv, offsets_t, w,
+                           sweeps)
+
+
+def _precond_launch(plan, dia_pre, r2, unf2, dinv, offsets_t, w, sweeps):
+    """One launch of the preconditioner kernel with the geometry `plan`;
+    raises on any CUDA error (a grid that cannot be co-resident included)."""
+    n_off, NVp = dia_pre.shape[0], r2.shape[1]
+    fn = getattr(_load(), f"tsl_dia_precond_{_SUFFIX[r2.dtype]}")
+    za, zb = torch.empty_like(r2), torch.empty_like(r2)
+    err = fn(dia_pre.data_ptr(), r2.data_ptr(), unf2.data_ptr(),
+             dinv.data_ptr(), za.data_ptr(), zb.data_ptr(),
+             offsets_t.data_ptr(), n_off, NVp, float(w), int(sweeps),
+             plan.rows, plan.groups, plan.staged, plan.max_off, plan.grid,
+             plan.threads, plan.smem_bytes,
+             torch.cuda.current_stream(r2.device).cuda_stream)
+    _raise_on(err, f"dia_precond launch ({plan})")
+    LAUNCHES["dia_precond"] += 1
+    return zb if sweeps % 2 else za

@@ -5,6 +5,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional
 
+import torch
+
 from ..core.spec import Params, SceneSpec, SimState
 
 
@@ -30,8 +32,15 @@ class TaskScene:
     def seed_for(self, name: str = "default"):
         return self.seed_losses.get(name, self.seed_loss)
 
-    def to(self, device, dtype=None):
-        """(spec, state0, params) moved to `device` in one call."""
+    def to(self, device=None, dtype=None):
+        """(spec, state0, params) moved to `device` in one call. The default
+        is the CUDA card, and no card raises: the CPU is taken only when the
+        caller asks for it (`to("cpu")`)."""
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("TaskScene.to: no CUDA card; pass "
+                                   "device='cpu' to run on the CPU")
+            device = torch.device("cuda")
         dtype = self.spec.dtype if dtype is None else dtype
         return (self.spec.to(device, dtype), self.state0.to(device, dtype),
                 self.params.to(device, dtype))
