@@ -15,8 +15,19 @@ backward. Both halves run once more on the plain path, the backward once
 more in f64 on the same tape, and the forward+backward once under phase
 timers and once under the profiler. On the bench's actions the pad never
 touches the cloth (the cloth sinks faster than the pad's 0.4 mm a step),
-so the bench's gripper gradient is zero; a last phase runs the full-size
+so the bench's gripper gradient is zero; a later phase runs the full-size
 forward+backward with the pad pressing 2 mm a step, where it is not.
+A short bench forward then takes the full-Newton branch (hess_refresh=1)
+through both kernels.
+
+The folding task's trajectory optimisation follows, on the dense solve
+(no hand kernel: cuSOLVER's batched eigh, the LU solve): the small f64
+folding trajopt against the JAX package's saved run
+(tests/data/folding_trajopt_golden.npz), then the published scene in f32
+through `registry.make_scene("folding", solver="auto")` and
+`TrajOptDriver` at T=50 for FOLD_ITERS iteration (the CLI runs more), the
+f32 gradient held against an f64 backward on the same tape, and phase
+timers and a profiler pass over a shorter rollout.
 
     python3 chip_smoke.py
 
@@ -37,6 +48,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "bench8_golden.npz")
 GOLDEN_ADJ = os.path.join(ROOT, "tests", "data", "bench8_adjoint_golden.npz")
+GOLDEN_FOLD = os.path.join(ROOT, "tests", "data",
+                           "folding_trajopt_golden.npz")
 
 # kernel vs plain version, max |kernel - plain| / max |plain|: both sum the
 # same 9 * n_off products per row in another order; the preconditioner
@@ -66,9 +79,30 @@ GOLDEN_ADJ_RTOL = 1e-7
 # near it
 ADJ_PLAIN_RTOL = 5e-2
 T_STEPS = 8
+# the profiler pass's rollout: reading back the trace of T_STEPS took a
+# minute of the script's time budget
+T_PROFILE = 2
 DISPLACEMENT_Z = -4e-4  # bench.py:143-149: the pad moves 0.4 mm down a step
 # the pressing run: the pad moves 2 mm down a step and reaches the cloth
 T_PRESS, PRESS_Z = 4, -2e-3
+# the small f64 folding trajopt vs the JAX run: Newton to newton_tol 1e-7
+# and dense LU solves on both sides, sums in another order (the CPU port
+# agrees to 1e-13 and below)
+FOLD_POS_ATOL, FOLD_REF_ATOL = 1e-8, 1e-9  # metres, radians
+FOLD_REWARD_RTOL, FOLD_GRAD_RTOL = 1e-9, 1e-6
+# an Adam step of lr 1e-3 moves a waypoint by at most ~1e-3 per unit of
+# m_hat / sqrt(v_hat); a 1e-6 relative error of g moves it by ~1e-9 m
+FOLD_TRAJ_ATOL = 1e-8
+# the f32 folding gradient vs an f64 backward on the same f32 tape,
+# |g32 - g64| / |g64| in the L2 norm: the definition of the JAX package's
+# CPU-f32 dense figure of 4.3e-3 (BASELINE.md:211, scripts/grad_accuracy.py)
+FOLD_F32_RTOL = 1e-2
+# the published folding trajopt: the reference's 50 waypoints
+# (run_trajopt_folding.sh), FOLD_ITERS iterations
+FOLD_T, FOLD_ITERS = 50, 1
+# the shorter rollout of the folding phase timers and f32 spread, and the
+# Newton cap of the profiler pass over its first step
+FOLD_PHASE_STEPS, FOLD_PROFILE_NEWTON = 1, 5
 # the card's published peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores, at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -82,6 +116,14 @@ SPILL_NVP = 16384
 
 def log(msg):
     print(msg, flush=True)
+
+
+def timed(name, fn, *args):
+    """fn(*args), and a line with its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def bench_actions(T, dtype, device, dz=None):
@@ -681,56 +723,279 @@ def phase_timers(sc, spec, s0, params, device):
         pt.restore()
 
 
-def profile_phase(sc, spec, s0, params, device):
-    """One forward and one backward, each under torch.profiler: device time,
-    launches, busy share, and each kernel's share of the device time."""
+def traced(fn):
+    """fn() under torch.profiler: (fn's result, wall s, device us, kernel
+    launches, {DIA kernel: (us, launches)}, the 6 largest entries)."""
     from torch.profiler import ProfilerActivity, profile
 
-    def traced(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        total_us, total_n, mine, top = 0.0, 0, {}, []
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = (getattr(e, "self_device_time_total", None)
-                  or getattr(e, "self_cuda_time_total", 0))
-            total_us += us
-            total_n += e.count
-            top.append((us, e.count, e.key[:60]))
-            for k in ("dia_spmv_kernel", "dia_precond_kernel"):
-                if k in e.key:
-                    a, n = mine.get(k, (0.0, 0))
-                    mine[k] = (a + us, n + e.count)
-        if total_us <= 0:
-            raise RuntimeError("the profiler recorded no device time")
-        return out, wall, total_us, total_n, mine, sorted(top)[::-1][:6]
+    wall = time.perf_counter() - t0
+    total_us, total_n, mine, top = 0.0, 0, {}, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0))
+        total_us += us
+        total_n += e.count
+        top.append((us, e.count, e.key[:60]))
+        for k in ("dia_spmv_kernel", "dia_precond_kernel"):
+            if k in e.key:
+                a, n = mine.get(k, (0.0, 0))
+                mine[k] = (a + us, n + e.count)
+    if total_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return out, wall, total_us, total_n, mine, sorted(top)[::-1][:6]
 
-    def report(tag, wall, total_us, total_n, mine, top=()):
-        shares = ", ".join(f"{k} {us / 1e3:.2f} ms over {n} launches = "
-                           f"{us / total_us:.4f} of device time"
-                           for k, (us, n) in sorted(mine.items()))
-        log(f"[profile] f32 T={T_STEPS} {tag} under the profiler: wall "
-            f"{wall:.3f} s, device time {total_us / 1e3:.1f} ms over "
-            f"{total_n} kernel launches, busy share "
-            f"{total_us / 1e6 / wall:.4f}; {shares or 'no DIA kernel'}")
-        for us, n, key in top:
-            log(f"[profile]   {tag}: {us / 1e3:.2f} ms over {n} launches: "
-                f"{key}")
 
-    buf, *fwd = traced(lambda: rollout(spec, s0, params, device)[0])
+def report_trace(tag, wall, total_us, total_n, mine, top=()):
+    shares = ", ".join(f"{k} {us / 1e3:.2f} ms over {n} launches = "
+                       f"{us / total_us:.4f} of device time"
+                       for k, (us, n) in sorted(mine.items()))
+    log(f"{tag} under the profiler: wall {wall:.3f} s, device time "
+        f"{total_us / 1e3:.1f} ms over {total_n} kernel launches, busy "
+        f"share {total_us / 1e6 / wall:.4f}; {shares or 'no DIA kernel'}")
+    for us, n, key in top:
+        log(f"{tag}: {us / 1e3:.2f} ms over {n} launches: {key}")
+
+
+def profile_phase(sc, spec, s0, params, device):
+    """One forward and one backward of T_PROFILE steps, each under
+    torch.profiler: device time, launches, busy share, and each kernel's
+    share of the device time."""
+    buf, *fwd = traced(lambda: rollout(spec, s0, params, device,
+                                       T=T_PROFILE)[0])
     _, *bwd = traced(lambda: backward(sc, spec, params, buf))
-    report("forward", *fwd)
-    report("backward", *bwd)
+    tag = f"[profile] f32 T={T_PROFILE}"
+    report_trace(f"{tag} forward", *fwd)
+    report_trace(f"{tag} backward", *bwd)
     both = {k: tuple(a + b for a, b in zip(fwd[3].get(k, (0.0, 0)),
                                           bwd[3].get(k, (0.0, 0))))
             for k in set(fwd[3]) | set(bwd[3])}
-    report("forward + backward", fwd[0] + bwd[0], fwd[1] + bwd[1],
-           fwd[2] + bwd[2], both)
+    report_trace(f"{tag} forward + backward", fwd[0] + bwd[0],
+                 fwd[1] + bwd[1], fwd[2] + bwd[2], both)
+
+
+def full_newton_phase(device):
+    """The full-size bench forward on the full-Newton branch
+    (hess_refresh=1: Hessian, operator and PCG every Newton iteration, an
+    energy-only line search) through both kernels, 2 steps."""
+    from thinshelllab_torch.ops import dia_spmv as K
+    from thinshelllab_torch.scenes import bench_scene
+
+    sc = bench_scene.make(cloth_N=70, table_n=12, dtype=torch.float32,
+                          hess_refresh=1, fwd_tol=1e-3, max_newton_iter=8)
+    spec, s0, params = sc.to(device, torch.float32)
+    K.reset_launches()
+    buf, stats, secs = rollout(spec, s0, params, device, T=2)
+    launches = dict(K.LAUNCHES)
+    log(f"[full-newton] bench f32 T=2 hess_refresh=1: {secs:.3f} s, Newton "
+        f"iters {stats['newton_iters']}, operator builds "
+        f"{stats['hess_builds']}, CG iters {stats['cg_iters']}, line-search "
+        f"trials {stats['ls_trials']}, launches {launches}")
+    if not bool(torch.isfinite(buf["pos"]).all()):
+        raise AssertionError("non-finite positions on the full-Newton branch")
+    if stats["hess_builds"] != stats["newton_iters"] or min(
+            launches.values()) <= 0:
+        raise AssertionError(f"full-Newton branch: stats {stats}, launches "
+                             f"{launches}")
+    return launches
+
+
+def folding_golden_check(device):
+    """The small f64 folding trajopt (TrajOptDriver, dense solve, plastic
+    rest angles) against the JAX package's saved run."""
+    from thinshelllab_torch.scenes import folding
+    from thinshelllab_torch.train.trajopt import TrajOptDriver
+
+    g = np.load(GOLDEN_FOLD)
+    sc = folding.make(table_n=int(g["table_n"]),
+                      max_newton_iter=int(g["max_newton_iter"]),
+                      dtype=torch.float64)
+    T = int(g["T"])
+    drv = TrajOptDriver(sc, T, lr=float(g["lr"]),
+                        max_dist=float(g["max_dist"]), device=device)
+    t0 = time.perf_counter()
+    infos = [drv.iteration() for _ in range(len(g["rewards"]))]
+    secs = time.perf_counter() - t0
+    buf = infos[0]["buffers"]
+    pos_err = float(np.abs(buf["pos"].cpu().numpy() - g["pos"]).max())
+    ref_err = float(np.abs(buf["ref_angle"].cpu().numpy()
+                           - g["ref_angle"]).max())
+    gate_ok = bool(np.array_equal(buf["yield_gate"].cpu().numpy(),
+                                  g["yield_gate"]))
+    rewards = np.asarray(drv.history)
+    rew_rel = float((np.abs(rewards - g["rewards"])
+                     / np.abs(g["rewards"])).max())
+    gg = infos[0]["gripper_grad"].cpu().numpy()
+    gg_rel = float(np.abs(gg - g["gripper_grad"]).max()
+                   / np.abs(g["gripper_grad"]).max())
+    traj_err = float(np.abs(drv.agent.traj - g["traj"]).max())
+    log(f"[folding-golden] f64 table_n={int(g['table_n'])} T={T}, "
+        f"{len(rewards)} TrajOptDriver iterations on the card in "
+        f"{secs:.2f} s vs the JAX run: max |dpos| {pos_err:.3e} m (tol "
+        f"{FOLD_POS_ATOL:.0e}), ref_angle {ref_err:.3e} rad (tol "
+        f"{FOLD_REF_ATOL:.0e}), yield_gate equal {gate_ok}, rewards "
+        f"{rewards.tolist()} max rel err {rew_rel:.3e} (tol "
+        f"{FOLD_REWARD_RTOL:.0e}), gripper_grad max rel err {gg_rel:.3e} "
+        f"(tol {FOLD_GRAD_RTOL:.0e}), waypoint table after the Adam steps "
+        f"max |d| {traj_err:.3e} m (tol {FOLD_TRAJ_ATOL:.0e}); Newton "
+        f"iterations per step {infos[0]['stats']['newton_per_step']}")
+    if not (pos_err <= FOLD_POS_ATOL and ref_err <= FOLD_REF_ATOL and gate_ok
+            and rew_rel <= FOLD_REWARD_RTOL and gg_rel <= FOLD_GRAD_RTOL
+            and traj_err <= FOLD_TRAJ_ATOL):
+        raise AssertionError("the small folding trajopt disagrees with the "
+                             "JAX golden run")
+
+
+def folding_trajopt(device):
+    """The published folding scene in f32 as the CLI builds it on a card,
+    FOLD_ITERS TrajOptDriver iterations at T=FOLD_T: (scene, driver, the
+    first iteration's info)."""
+    from thinshelllab_torch.ops import dia_spmv as K
+    from thinshelllab_torch.scenes import registry
+    from thinshelllab_torch.train.trajopt import TrajOptDriver
+
+    t0 = time.perf_counter()
+    sc = registry.make_scene("folding", solver="auto", dtype=torch.float32)
+    s = sc.spec
+    log(f"[folding-trajopt] scene built on the host in "
+        f"{time.perf_counter() - t0:.2f} s: NV {s.NV} ({3 * s.NV} DOF), "
+        f"solver '{s.solver}' (from 'auto'), {s.dtype}, contact capacity "
+        f"{s.contact.capacity}, hinges {s.cloth.hinge_verts.shape[0]}, tets "
+        f"{s.neo.tets.shape[0]} + {s.tact.tets.shape[0]}, newton_tol "
+        f"{s.newton_tol}, max_newton_iter {s.max_newton_iter}")
+    if s.solver != "dense":
+        raise AssertionError(f"folding resolved to solver '{s.solver}'")
+    drv = TrajOptDriver(sc, FOLD_T, lr=1e-3, max_dist=0.015, device=device)
+    K.reset_launches()
+    first = None
+    for i in range(FOLD_ITERS):
+        torch.cuda.reset_peak_memory_stats(device)
+        info = drv.iteration()
+        peak = torch.cuda.max_memory_allocated(device)
+        st, per = info["stats"], info["stats"]["newton_per_step"]
+        at_cap = sum(n >= s.max_newton_iter for n in per)
+        log(f"[folding-trajopt] f32 T={FOLD_T} iter {i}: forward "
+            f"{info['forward_s']:.3f} s, backward {info['backward_s']:.3f} s; "
+            f"Newton iterations per step mean {np.mean(per):.2f}, max "
+            f"{max(per)}, {at_cap} of {len(per)} steps at the cap, "
+            f"{st['newton_iters']} in all; line-search trials "
+            f"{st['ls_trials']}; peak memory {peak / 2**20:.1f} MiB; per "
+            f"step {per}")
+        log(f"iter {i}: reward {info['reward']:.6f} |g| "
+            f"{info['grad_norm']:.4g} t {info['wall_time']:.2f}s")
+        gg = info["gripper_grad"]
+        if not (np.isfinite(info["reward"]) and bool(torch.isfinite(gg).all())
+                and info["grad_norm"] > 0):
+            raise AssertionError(f"folding iteration {i}: reward "
+                                 f"{info['reward']}, |g| {info['grad_norm']}")
+        if first is None:
+            first = info
+    launches = dict(K.LAUNCHES)
+    log(f"[folding-trajopt] DIA kernel launches over the {FOLD_ITERS} "
+        f"iterations: {launches} (the dense solve uses none)")
+    return sc, drv, first
+
+
+def folding_f32_adjoint(sc, info, device):
+    """The first iteration's f32 tape cast to f64 and its backward: the
+    f32 gripper gradient's error."""
+    from thinshelllab_torch.engine import adjoint
+
+    buf = info["buffers"]
+    spec64, _, params64 = sc.to(device, torch.float64)
+    buf64 = {k: v.double() if v.is_floating_point() else v
+             for k, v in buf.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res64 = adjoint.backward(spec64, params64, buf64, *sc.seed_loss(buf64))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    g32, g64 = info["gripper_grad"].double(), res64.gripper_grad
+    err = float(torch.linalg.vector_norm(g32 - g64)
+                / torch.linalg.vector_norm(g64))
+    worst = int((g32 - g64).abs().amax(dim=(1, 2)).argmax())
+    log(f"[folding-f32-adjoint] f64 backward on the first iteration's f32 "
+        f"tape: {secs:.3f} s; the f32 gripper_grad's error against it "
+        f"|g32 - g64| / |g64| {err:.3e} (tol {FOLD_F32_RTOL:.0e}), max "
+        f"|g32 - g64| / max |g64| {rel_err(g32, g64):.3e} (printed, not "
+        f"gated; largest at step {worst}: f32 {g32[worst, 0].tolist()}, f64 "
+        f"{g64[worst, 0].tolist()}); |g| f32 {float(info['grad_norm']):.6g},"
+        f" f64 {float(torch.linalg.vector_norm(g64)):.6g}")
+    if not err <= FOLD_F32_RTOL:
+        raise AssertionError(f"f32 folding gradient off by {err:.3e}")
+
+
+def folding_phases(sc, drv, device):
+    """FOLD_PHASE_STEPS steps of the driver's current waypoint table:
+    forward + backward under phase timers, the f32 reward of one more run
+    of that rollout, and the backward and a forward step cut to
+    FOLD_PROFILE_NEWTON Newton iterations under the profiler."""
+    from thinshelllab_torch.engine import adjoint, elements, solver, stepper
+    from thinshelllab_torch.ops import spd
+
+    acts = tuple(a[:FOLD_PHASE_STEPS] for a in drv.agent.actions())
+    tag = f"f32 {FOLD_PHASE_STEPS} steps"
+    pt = PhaseTimer()
+    fwd = [(elements, "all_groups", "element Hessians (all_groups)"),
+           (spd, "project_psd", "eigh projection (project_psd)"),
+           (elements, "dense_hessian", "dense_hessian"),
+           (solver, "solve_dense", "dense solve (dense_hessian + LU)"),
+           (elements, "total_energy", "total_energy"),
+           (stepper, "build_contacts", "contacts"),
+           (elements, "assemble_residual", "assemble_residual")]
+    bwd = [(adjoint, "_rebuild_contact", "contact rebuild"),
+           (elements, "all_groups", "element Hessians (all_groups)"),
+           (elements, "dense_hessian", "dense_hessian"),
+           (solver, "solve_dense", "dense solve (dense_hessian + LU)"),
+           (elements, "frozen_column_product", "frozen-column product"),
+           (adjoint, "_contact_energy_backprop", "contact chain"),
+           (adjoint, "_hinge_grads", "hinge gradients (plastic chain)"),
+           (adjoint, "_gather_gripper_grad", "gripper gradient gather")]
+    try:
+        for owner, name, label in fwd:
+            pt.wrap(owner, name, label)
+        pt.wrap(elements, "linesearch_energy_fn", "line-search trial",
+                factory=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, buf = drv.forward(acts)
+        torch.cuda.synchronize()
+        pt.restore()
+        pt.report(f"folding forward {tag} ({time.perf_counter() - t0:.3f} s "
+                  f"with the syncs):")
+        for owner, name, label in bwd:
+            pt.wrap(owner, name, label)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drv.backward(buf, *sc.seed_loss(buf))
+        torch.cuda.synchronize()
+        pt.restore()
+        pt.report(f"folding backward {tag} ({time.perf_counter() - t0:.3f} s "
+                  f"with the syncs):")
+    finally:
+        pt.restore()
+    buf2 = drv.forward(acts)[1]
+    rewards = [float(sc.reward(b)) for b in (buf, buf2)]
+    dpos = float((buf2["pos"] - buf["pos"]).abs().max())
+    log(f"[folding-spread] {tag}, the same actions twice: rewards "
+        f"{rewards}, difference {rewards[1] - rewards[0]:.3e}; max |dpos| "
+        f"between the runs {dpos:.3e} m")
+    # the profiler's trace of a whole step (~600,000 launches) takes minutes
+    # to read back: the first step with the Newton cap cut instead
+    spec_p = drv.spec.replace(max_newton_iter=FOLD_PROFILE_NEWTON)
+    acts1 = tuple(a[:1] for a in acts)
+    _, *fw = traced(lambda: stepper.simulate(spec_p, drv.params, drv.state0,
+                                             acts1))
+    _, *bw = traced(lambda: drv.backward(buf, *sc.seed_loss(buf)))
+    report_trace(f"[folding-profile] f32 1 step, {FOLD_PROFILE_NEWTON} Newton "
+                 f"iterations, forward", *fw)
+    report_trace(f"[folding-profile] {tag} backward", *bw)
 
 
 def main():
@@ -766,9 +1031,10 @@ def main():
         f"contact capacity {s.contact.capacity}, hinges "
         f"{s.cloth.hinge_verts.shape[0]}")
 
-    kres = kernel_checks(sc, device)
-    golden_check(device)
-    golden_adjoint_check(device)
+    kres = timed("kernel checks", kernel_checks, sc, device)
+    timed("golden", golden_check, device)
+    timed("golden-adjoint", golden_adjoint_check, device)
+    t_main = time.perf_counter()
 
     spec, s0, params = sc.to(device, torch.float32)
     gp = spec.dev.grid_plan
@@ -834,10 +1100,18 @@ def main():
     if not rel <= PLAIN_VS_KERNEL_RTOL:
         raise AssertionError(f"plain and kernel rollouts differ ({rel:.3e})")
 
-    launches_bwd, _ = adjoint_phase(sc, spec, params, buf, secs, device)
-    phase_timers(sc, spec, s0, params, device)
-    profile_phase(sc, spec, s0, params, device)
-    press_phase(sc, spec, s0, params, device)
+    log(f"[time] main and plain: {time.perf_counter() - t_main:.1f} s")
+    launches_bwd, _ = timed("adjoint", adjoint_phase, sc, spec, params, buf,
+                            secs, device)
+    timed("phases", phase_timers, sc, spec, s0, params, device)
+    timed("profile", profile_phase, sc, spec, s0, params, device)
+    timed("adjoint-press", press_phase, sc, spec, s0, params, device)
+    launches_fn = timed("full-newton", full_newton_phase, device)
+
+    timed("folding-golden", folding_golden_check, device)
+    fsc, fdrv, finfo = timed("folding-trajopt", folding_trajopt, device)
+    timed("folding-f32-adjoint", folding_f32_adjoint, fsc, finfo, device)
+    timed("folding-phases", folding_phases, fsc, fdrv, device)
 
     src = "thinshelllab_torch/csrc/dia_spmv.cu"
     replaces = {"dia_spmv": "thinshelllab_tpu/ops/dia_spmv.py:93",
@@ -847,7 +1121,8 @@ def main():
         dict(name=name, route="cuda", source=src, replaces=replaces[name],
              launches=launches[name] + launches_bwd[name],
              launches_forward=launches[name],
-             launches_backward=launches_bwd[name], **kres[name])
+             launches_backward=launches_bwd[name],
+             launches_full_newton=launches_fn[name], **kres[name])
         for name in ("dia_spmv", "dia_precond")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

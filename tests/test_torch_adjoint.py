@@ -34,6 +34,7 @@ from thinshelllab_torch.engine import adjoint, elements, gridsolve, solver
 from thinshelllab_torch.engine import stepper
 from thinshelllab_torch.ops import spd
 from thinshelllab_torch.scenes import bench_scene
+from _torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                       "bench8_adjoint_golden.npz")
@@ -107,6 +108,7 @@ def _jax_operator(spec, params, buffers, z, r, F):
     pre = jgrid.GridPreconditioner(spec, gp, dia_pc, Dinv, st["Dc"])
     x, it = jsolver.solve_gmres(spec, groups, F, return_iters=True)
     return dict(Az=A(z), fz=jelements.frozen_column_product(spec, groups, z),
+                xd=jsolver.solve_dense(spec, groups, F),
                 dia=st["dia"], dia_pc=dia_pc, D=D, U=U,
                 tri=jgrid.solve_tridiag(fac, rb),
                 Mr=pre.apply(r), x=x, it=it)
@@ -358,10 +360,22 @@ def test_float32_backward_stays_float32():
     assert float(res.gripper_grad.abs().max()) > 0
 
 
-def test_unported_branches_raise(operator):
+def test_dense_adjoint_solve_matches_jax(operator, ref):
+    """solve_adjoint on the dense path (the LU solve of the assembled true
+    Hessian, once an unported branch) against JAX's solve_dense on the
+    same operator."""
     spec, groups, _st, (_z, _r, F) = operator
-    with pytest.raises(NotImplementedError, match="dense"):
-        solver.solve_adjoint(spec.replace(solver="dense"), groups, F)
+    x, it = solver.solve_adjoint(spec.replace(solver="dense"), groups, F,
+                                 x0=torch.ones_like(F), return_iters=True)
+    assert it == 0
+    assert _rel(x, ref["op"]["xd"]) < GRAD_RTOL
+    assert _rel(x, ref["op"]["x"]) < 1e-6  # GMRES to adj_tol 1e-10
+
+
+def test_unported_branches_raise(operator):
+    """The MINRES adjoint (scenes without a cloth grid plan) and
+    backward_chunked are not ported."""
+    spec, groups, _st, (_z, _r, F) = operator
     no_grid = spec.replace(dev=dataclasses.replace(spec.dev, grid_plan=()))
     with pytest.raises(NotImplementedError, match="MINRES"):
         solver.solve_adjoint(no_grid, groups, F)

@@ -20,6 +20,7 @@ from thinshelllab_tpu.scenes import bench_scene as jbench
 from thinshelllab_torch.engine import elements
 from thinshelllab_torch.ops import dia_spmv as K
 from thinshelllab_torch.scenes import bench_scene
+from _torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = dict(cloth_N=8, table_n=4, solver="cg", hess_refresh=8,
            max_newton_iter=4)

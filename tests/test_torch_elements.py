@@ -27,6 +27,7 @@ from thinshelllab_torch.engine import solver as sol
 from thinshelllab_torch.engine import stepper
 from thinshelllab_torch.ops import collision as col
 from thinshelllab_torch.scenes import bench_scene
+from _torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "bench8_golden.npz")
 CFG = dict(cloth_N=8, table_n=4, solver="cg", hess_refresh=8,

@@ -15,6 +15,7 @@ from thinshelllab_tpu.scenes import bench_scene as jbench
 from thinshelllab_torch.engine import elements
 from thinshelllab_torch.ops import energies as en
 from thinshelllab_torch.ops import spd
+from _torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-10
 K_CONTACT, EPS_CONTACT = 1e4, 4e-4  # the bench scene's barrier
@@ -137,5 +138,7 @@ def test_spd_projections_match_jax(k):
         got = spd.gershgorin_psd(torch.as_tensor(H))
         want = jspd.gershgorin_psd(jnp.asarray(H))
     _close(got, want)
-    with pytest.raises(NotImplementedError, match="eigh|eigenvalue"):
-        spd.project_psd_method(torch.as_tensor(H), "eigh")
+    # the eigenvalue clamp (spd_method 'eigh', the scenes' default)
+    got = spd.project_psd_method(torch.as_tensor(H), "eigh")
+    _close(got, jspd.project_psd_method(jnp.asarray(H), "eigh"))
+    assert torch.linalg.eigvalsh(got).min() > -1e-12

@@ -14,7 +14,10 @@ count that is not a multiple of the preconditioner's rows per CTA, and
 at NVp 16384, whose f32 store overflows the card's shared memory (the
 preconditioner then reads its last lanes from global memory); for the
 adjoint's (NV, 3) operator and GMRES, the true Hessian of the small and of
-the full bench scene at a perturbed state.
+the full bench scene at a perturbed state. The dense path of small scenes
+(no hand kernel: cuSOLVER's batched eigh, the scatter-add assembly with
+atomics, the LU solve) is held against its own CPU results in f64 on the
+small folding scene.
 """
 import dataclasses
 
@@ -23,7 +26,8 @@ import torch
 
 from thinshelllab_torch.engine import elements, solver, stepper
 from thinshelllab_torch.ops import dia_spmv as K
-from thinshelllab_torch.scenes import bench_scene
+from thinshelllab_torch.ops import spd
+from thinshelllab_torch.scenes import bench_scene, folding
 
 # kernel vs plain version: the same 9 * n_off products per row summed in
 # another order (the kernel adds 8 partial sums per row); f32 keeps ~7
@@ -287,3 +291,45 @@ def test_solve_gmres_kernel_matches_plain(cuda, dtype, cloth_N):
     else:
         assert max(res, res_ref) <= F32_RESIDUAL, (res, res_ref, it, it_ref)
         assert max(res / res_ref, res_ref / res) <= F32_RATIO, (res, res_ref)
+
+
+@pytest.mark.cuda
+def test_dense_path_matches_cpu(cuda):
+    """project_psd (eigh), dense_hessian, the scatter residual and
+    solve_dense on the card against the CPU, f64, on one contact set: the
+    small folding scene at a perturbed state, and seeded 9x9 / 12x12
+    blocks with repeated eigenvalues."""
+    sc = folding.make(table_n=4, max_newton_iter=30)
+    g = torch.Generator().manual_seed(0)
+    pert = 1e-4 * torch.randn(sc.state0.pos.shape, generator=g,
+                              dtype=torch.float64)
+    blocks = []
+    for k in (9, 12):
+        A = torch.randn((64, k, k), generator=g, dtype=torch.float64)
+        lam = torch.randn((64, k), generator=g, dtype=torch.float64)
+        lam[:, 0:2], lam[:, 2:5] = -1.5, 2.0
+        Q, _ = torch.linalg.qr(A)
+        blocks.append(torch.cat([A + A.transpose(1, 2),
+                                 Q @ torch.diag_embed(lam) @ Q.transpose(1, 2)]))
+    out, contact = {}, None
+    for dev in (torch.device("cpu"), cuda):
+        spec, s0, params = sc.to(dev, torch.float64)
+        pos = s0.pos + pert.to(dev) * spec.dev.unf
+        if contact is None:
+            contact, _, _ = stepper.build_contacts(
+                spec, params, pos, s0.pos, s0.proj_flag, s0.proj_dir)
+        con = contact.to(dev, torch.float64)
+        groups = elements.all_groups(spec, params, pos, s0.ref_angle, con,
+                                     with_hess=True, spd=True)
+        F = elements.assemble_residual(spec, groups, pos, s0.pos, s0.vel)
+        out[dev.type] = dict(
+            psd9=spd.project_psd(blocks[0].to(dev)),
+            psd12=spd.project_psd(blocks[1].to(dev)),
+            H_el=groups["H"], H=elements.dense_hessian(spec, groups), F=F,
+            p=solver.solve_dense(spec, groups, F))
+    assert int(contact.active.sum()) > 0
+    for key, want in out["cpu"].items():
+        got = out["cuda"][key].cpu()
+        err = float((got - want).abs().max() / want.abs().max())
+        print(f"{key}: max rel err {err:.3e}")
+        assert err <= 1e-10, (key, err)

@@ -22,6 +22,7 @@ from thinshelllab_tpu.engine import stepper as jstepper
 from thinshelllab_tpu.scenes import bench_scene as jbench
 from thinshelllab_torch.engine import stepper
 from thinshelllab_torch.scenes import bench_scene
+from _torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "bench8_golden.npz")
 CFG = dict(cloth_N=8, table_n=4, solver="cg", hess_refresh=8,
@@ -44,8 +45,8 @@ def _actions():
     return dpos, np.zeros((T, 1, 3)), np.zeros((T, 1))
 
 
-def _jax_rollout():
-    sc = jbench.make(dtype=jnp.float64, **CFG)
+def _jax_rollout(cfg=CFG):
+    sc = jbench.make(dtype=jnp.float64, **cfg)
     pos0 = _jittered_pos0(sc.state0.pos, (CFG["cloth_N"] + 1) ** 2)
     state0 = jax.tree.map(jnp.asarray, sc.state0.replace(pos=pos0))
     acts = tuple(jnp.asarray(a) for a in _actions())
@@ -121,12 +122,27 @@ def test_simulate_requires_a_moved_spec():
 
 
 def test_refresh_one_branch_raises():
-    sc = bench_scene.make(dtype=torch.float64,
-                          **{**CFG, "hess_refresh": 1})
+    """The hess_refresh=1 branch (full Newton: Hessian, residual and CG
+    solve every iteration, an energy-only line search), which raised
+    before it was ported, against JAX's on 'cg' through the DIA path."""
+    cfg = {**CFG, "hess_refresh": 1}
+    pos0, jbuf = _jax_rollout(cfg)
+    sc = bench_scene.make(dtype=torch.float64, **cfg)
     spec, s0, params = sc.to("cpu")
-    with pytest.raises(NotImplementedError, match="hess_refresh=1"):
-        stepper.simulate(spec, params, s0,
-                         tuple(torch.as_tensor(a) for a in _actions()))
+    assert spec.dia is not None and spec.solver == "cg"
+    stats = {}
+    _, tbuf = stepper.simulate(spec, params,
+                               s0.replace(pos=torch.as_tensor(pos0)),
+                               tuple(torch.as_tensor(a) for a in _actions()),
+                               stats=stats)
+    np.testing.assert_allclose(tbuf["pos"].numpy(), jbuf["pos"], rtol=0,
+                               atol=POS_ATOL)
+    for key in ("yield_gate", "final_proj_flag", "final_proj_dir"):
+        np.testing.assert_array_equal(tbuf[key].numpy(), jbuf[key])
+    assert stats["hess_builds"] == stats["newton_iters"] == T * CFG[
+        "max_newton_iter"]
+    assert stats["cg_iters"] > 0
+    assert stats["ls_trials"] >= stats["newton_iters"]
 
 
 def _write_golden():

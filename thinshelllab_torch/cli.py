@@ -1,0 +1,138 @@
+"""Command-line driver (counterpart of `thinshelllab_tpu/cli.py`; reference
+training/*.py + code/scripts/*.sh). The port has the `trajopt`
+subcommand:
+
+  python -m thinshelllab_torch.cli trajopt --env folding --iter 10 --tot_step 50
+
+It runs on the CUDA card (`--platform gpu`, the default; no card raises)
+with the JAX CLI's accelerator defaults: solver 'auto' (dense below 6000
+DOF, CG on the DIA plan above) and float32 unless --f64. `--platform cpu`
+takes the JAX CLI's CPU defaults: the dense solver and the scene's own
+dtype (float64) unless --f32. The other subcommands (cmaes, dp, rl,
+render, bench) are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+
+def _add_common(p):
+    p.add_argument("--platform", type=str, default="gpu",
+                   choices=("gpu", "cpu"),
+                   help="where the scene runs: the CUDA card (default; "
+                        "raises without one) or the CPU")
+    p.add_argument("--env", type=str, default="folding")
+    p.add_argument("--tot_step", type=int, default=50)
+    p.add_argument("--Kb", type=float, default=None)
+    p.add_argument("--mu", type=float, default=None)
+    p.add_argument("--dense", type=float, default=None,
+                   help="box density of the interact scene (reference "
+                        "run_cmaes_separate_soft.sh --dense)")
+    p.add_argument("--save_dir", type=str, default=None)
+    p.add_argument("--solver", type=str, default=None,
+                   help="dense|cg|auto (default: auto on the card -- dense "
+                        "below 6000 DOF, CG on the DIA plan above; dense on "
+                        "the CPU)")
+    p.add_argument("--f32", action="store_true")
+    p.add_argument("--f64", action="store_true")
+    p.add_argument("--max_newton_iter", type=int, default=None)
+
+
+def _device(args):
+    if args.platform == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("--platform gpu: no CUDA card; pass --platform "
+                           "cpu to run on the CPU")
+    return torch.device("cuda")
+
+
+def _make_scene(args, device):
+    from .scenes import registry
+
+    on_card = device.type == "cuda"
+    kwargs = {}
+    if args.Kb is not None:
+        kwargs["kb"] = args.Kb
+    if args.mu is not None:
+        kwargs["mu_cloth_elastic"] = args.mu
+    if args.dense is not None:
+        kwargs["dense"] = args.dense
+    if args.max_newton_iter is not None:
+        kwargs["max_newton_iter"] = args.max_newton_iter
+    kwargs["solver"] = args.solver or ("auto" if on_card else "dense")
+    if args.f32 or (on_card and not args.f64):
+        kwargs["dtype"] = torch.float32
+    return registry.make_scene(args.env, **kwargs)
+
+
+def cmd_trajopt(args):
+    from .train.trajopt import TrajOptDriver
+
+    if args.render_every:
+        raise NotImplementedError("--render_every: rendering is not ported "
+                                  "yet (ROADMAP queue item 7)")
+    if args.load_state:
+        raise NotImplementedError("--load_state: full-state warm starts "
+                                  "(the balancing scenes' bundled state) are "
+                                  "not ported yet (ROADMAP queue item 3)")
+    device = _device(args)
+    scene = _make_scene(args, device)
+    save_dir = args.save_dir or f"imgs/traj_opt_{args.env}"
+    drv = TrajOptDriver(scene, args.tot_step, lr=args.lr,
+                        max_dist=args.max_dist, save_dir=save_dir,
+                        reward_name=args.reward_name or "default",
+                        fwd_chunk=args.fwd_chunk or None, device=device)
+    if args.load_traj:
+        drv.agent.load(args.load_traj)
+    if args.init_traj:
+        fn = getattr(drv.agent, f"init_traj_{args.init_traj}", None)
+        if fn is None:
+            raise KeyError(f"unknown --init_traj '{args.init_traj}'; "
+                           "available: forming, pick_fold, card, slide")
+        fn()
+    for i in range(args.iter):
+        info = drv.iteration()
+        print(f"iter {i}: reward {info['reward']:.6f} "
+              f"|g| {info['grad_norm']:.4g} t {info['wall_time']:.2f}s",
+              flush=True)
+    print("best reward:", drv.best_reward)
+
+
+def build_parser():
+    ap = argparse.ArgumentParser("thinshelllab_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("trajopt")
+    _add_common(p)
+    p.add_argument("--iter", type=int, default=10)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--max_dist", type=float, default=0.015)
+    p.add_argument("--reward_name", type=str, default=None,
+                   help="objective variant; selects the matching adjoint "
+                        "seed when the scene defines one")
+    p.add_argument("--load_traj", type=str, default=None)
+    p.add_argument("--init_traj", type=str, default=None,
+                   help="warm start: forming|pick_fold|card|slide "
+                        "(reference traj_opt_single.py:50-109)")
+    p.add_argument("--load_state", type=str, default=None,
+                   help="npz full-state warm start (not ported yet)")
+    p.add_argument("--render_every", type=int, default=0,
+                   help="render every n iterations (not ported yet)")
+    p.add_argument("--render_option", type=str, default="Preview")
+    p.add_argument("--fwd_chunk", type=int, default=0,
+                   help="rollout chunk size of the JAX package (not ported: "
+                        "0 only)")
+    p.set_defaults(fn=cmd_trajopt)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,13 @@
 """Carry a scene built by the JAX package into the port.
 
-`from_reference(obj)` turns the JAX builder's `SceneSpec`, `SimState`,
-`Params` (or any of their nested dataclasses) into the port's dataclass of
-the same name: numpy leaves are copied, static fields kept, the spec's
-dtype and SpMV route renamed to the port's. It reads attributes only, so
-this module imports no JAX; the tests use it to feed one scene to both
-packages.
+`from_reference(obj)` turns the JAX builder's `SceneSpec`, `SimState`
+(the folding scene's plastic `ref_angle` included), `Params` (or any of
+their nested dataclasses) into the port's dataclass of the same name:
+numpy leaves are copied, static fields kept, the spec's dtype and SpMV
+route renamed to the port's. `traj_agent_from_reference` and
+`adam_state_from_reference` carry a trajectory optimisation's waypoint
+table and optimizer state. It reads attributes only, so this module
+imports no JAX; the tests use it to feed one scene to both packages.
 """
 from __future__ import annotations
 
@@ -78,3 +80,23 @@ def from_reference(obj):
             v = from_reference(v)
         kw[f.name] = v
     return cls(**kw)
+
+
+def traj_agent_from_reference(agent, device="cpu"):
+    """The port's TrajAgent with a JAX `TrajAgent`'s sizes, motion limit
+    and waypoint table (copied, float64)."""
+    from ..agent.traj_opt import TrajAgent
+
+    out = TrajAgent(agent.tot_timestep, agent.n_part,
+                    max_moving_dist=agent.max_moving_dist, device=device)
+    out.traj = np.array(agent.traj, dtype=np.float64, copy=True)
+    return out
+
+
+def adam_state_from_reference(state, device="cpu"):
+    """The port's AdamState (float64 tensors on `device`) of a JAX
+    `AdamState`."""
+    from ..optim.adam import AdamState
+
+    return AdamState(*(torch.as_tensor(np.array(v, dtype=np.float64),
+                                       device=device) for v in state))

@@ -1,6 +1,6 @@
 """Element evaluation and assembly for the forward Newton solve and the
-adjoint (counterpart of `thinshelllab_tpu/engine/elements.py`, the subset
-the bench forward and backward run).
+adjoint (counterpart of `thinshelllab_tpu/engine/elements.py`: the DIA
+paths of the bench and the dense assembly of small scenes).
 
 Each evaluation produces a "group": a dict with
     idx: (E, k) global vertex ids
@@ -15,7 +15,8 @@ The operator is the hybrid DIA layout of the JAX package: a static
 pull slots, and the dynamic contact part (frozen-source diagonal +
 selection-matmul pairs). The forward CG state lives in the transposed
 (3, NVp) layout (`*_T`); the adjoint GMRES applies the same operator to
-(NV, 3) vectors (`hvp_dia`).
+(NV, 3) vectors (`hvp_dia`). A scene without a DIA plan (the dense solve of
+small scenes) assembles the whole matrix instead (`dense_hessian`).
 """
 from __future__ import annotations
 
@@ -406,6 +407,52 @@ def _tet_parts(spec, params, soups, dsoups):
     return parts
 
 
+def linesearch_energy_fn(spec, params, pos, p, prev_pos, vel, ref_angle,
+                         contact, soups=None, dsoups=None):
+    """E_of(alpha) = total_energy(pos - alpha p), term by term (the same
+    masks, canonical stencil on masked-out hinges and friction guard), on
+    soups gathered once: gathering commutes with the affine step, so a
+    trial gathers nothing. soups/dsoups: gather_soups of pos and of p
+    (direction=True), gathered here when not given."""
+    if spec.bend_batch:
+        raise NotImplementedError("bend_batch=True (the leading-axis-split "
+                                  "hinge form) is not ported yet")
+    c = spec.cloth
+    kl, ka = _face_params(spec, params)
+    kb = params.kb[c.hinge_cloth]
+    if soups is None:
+        soups = gather_soups(spec, contact, pos)
+    if dsoups is None:
+        dsoups = gather_soups(spec, contact, p, direction=True)
+    xm, dm = soups["xm"], dsoups["xm"]
+    xb, db = soups["xb"], dsoups["xb"]
+    xc, dc = soups["xc"], dsoups["xc"]
+    tets = _tet_parts(spec, params, soups, dsoups)
+    mb = spec.dev.hinge_m
+    mC = contact.active.to(pos.dtype)
+    bar = _barrier_fn(spec)
+
+    def E_of(alpha):
+        e = en.inertia_external_energy(pos - alpha * p, prev_pos, vel,
+                                       spec.mass, spec.gravity,
+                                       spec.ext_force, spec.dt)
+        e = e + torch.sum(en.membrane_energy(xm - alpha * dm, c.l0,
+                                             c.rest_area, kl, ka))
+        eb = en.bending_energy(xb - alpha * db, c.hinge_sel, ref_angle,
+                               c.hinge_coef, kb)
+        e = e + torch.sum(eb * mb)
+        for soup, mu, lam, efn, xt, dt_ in tets:
+            e = e + torch.sum(efn(_tet_D(xt - alpha * dt_), soup.B, soup.W,
+                                  mu, lam))
+        xc_ = xc - alpha * dc
+        e = e + torch.sum(bar(_rel_R(xc_)) * mC)
+        _u, r = friction_slip(spec, contact, xc_)
+        eF = contact.k * en.f0_smooth(r, spec.eps_v, spec.dt)
+        return e + torch.sum(eF * mC)
+
+    return E_of
+
+
 def linesearch_ef_fn(spec, params, pos, p, prev_pos, vel, ref_angle,
                      contact, soups, dsoups):
     """EF_of(alpha) -> (E, g_fused): the line-search energy at pos - alpha p
@@ -563,14 +610,17 @@ def assemble_residual(spec, fused, pos, prev_pos, vel):
     """Global gradient of the incremental potential, frozen DOFs zeroed
     (reference compute_residual_and_Hessian:976-989 + apply_frozen). With a
     DiaPlan, the cloth families add as static slices, the tet rows by the
-    plan's row table, and only the contact part scatters."""
+    plan's row table, and only the contact part scatters; without one,
+    every element row scatters into an (NV+1, 3) buffer whose last row is
+    the ghost vertex of the padded stencils."""
     X = pos - prev_pos - vel * spec.dt
     F = spec.mass[:, None] * X / spec.dt**2
     F = F - spec.mass[:, None] * spec.gravity
     F = F - spec.ext_force
     if spec.dia is None:
-        raise NotImplementedError("scenes without a DIA plan (the pull and "
-                                  "dense paths) are not ported yet")
+        Fp = torch.cat([F, F.new_zeros((1, 3))])
+        Fp.index_add_(0, fused["idx"].reshape(-1), fused["g"].reshape(-1, 3))
+        return torch.where(spec.frozen, torch.zeros_like(F), Fp[: spec.NV])
     plan = spec.dia
     ns = static_block_count(spec)
     g = fused["g"]
@@ -601,6 +651,28 @@ def assemble_residual(spec, fused, pos, prev_pos, vel):
     Fp.index_add_(0, fused["idx"][ns:].reshape(-1), g[ns:].reshape(-1, 3))
     F = F + Fp[: spec.NV]
     return torch.where(spec.frozen, torch.zeros_like(F), F)
+
+
+def dense_hessian(spec, fused):
+    """The full (3NV, 3NV) Hessian of the dense solve. Frozen rows and
+    columns of the element blocks are dropped; the inertia diagonal m/dt^2
+    is kept for every DOF (the reference adds the mass diagonal outside
+    add_H). The blocks accumulate into the flattened (3(NV+1))^2 matrix,
+    whose last three rows and columns (the ghost vertex) are cut off."""
+    n = (spec.NV + 1) * 3
+    md = spec.mass
+    unf = spec.dev.unf_p.reshape(-1)
+    idx, Hb = fused["idx"], fused["H"]
+    ar3 = torch.arange(3, device=idx.device)
+    dof = idx[..., None] * 3 + ar3  # (E, 4, 3)
+    rows = dof[:, :, None, :, None].expand(Hb.shape)
+    cols = dof[:, None, :, None, :].expand(Hb.shape)
+    vals = Hb * unf[rows] * unf[cols]
+    H = md.new_zeros((n * n,))
+    H.index_add_(0, (rows * n + cols).reshape(-1), vals.reshape(-1))
+    nv3 = spec.NV * 3
+    H = H.reshape(n, n)[:nv3, :nv3]
+    return H + torch.diag(torch.repeat_interleave(md / spec.dt**2, 3))
 
 
 def gather_neighbor_blocks(spec, fused, x_dtype):

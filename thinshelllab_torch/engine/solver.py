@@ -1,20 +1,26 @@
-"""The forward linear solve, the modified-Newton loop and the adjoint's
-linear solve (counterpart of `thinshelllab_tpu/engine/solver.py`, the
-paths the bench forward and backward run).
+"""The forward linear solves, the Newton loops and the adjoint's linear
+solve (counterpart of `thinshelllab_tpu/engine/solver.py`).
 
+  * `solve_dense`: the (3NV, 3NV) Hessian assembled and LU-solved, for
+    small scenes (`solver='dense'`, the JAX builder's 'auto' below 6000
+    DOF).
   * `_solve_cg_prepared_T`: preconditioned CG in the transposed (3, NVp)
     layout on the hybrid-DIA operator. The preconditioner is the damped
     block-Jacobi smoothing polynomial: the fused `dia_precond` CUDA kernels
     when the SpMV route is the kernel (`elements.use_spmv_kernel`), the
     per-sweep plain polynomial of the cheap operator otherwise.
-  * `newton_solve`: the macro/micro modified Newton of the JAX package
-    (operator rebuilt every `hess_refresh` iterations, residual fresh every
-    iteration) with a backtracking line search on the fused energy+force
-    evaluation.
-  * `solve_adjoint` / `solve_gmres`: restarted GMRES on the adjoint's true
-    (indefinite) Hessian, right-preconditioned by the BCR solve of each
-    cloth's tridiagonal (`gridsolve.GridPreconditioner`). The dense and
-    MINRES branches of the JAX package are not ported.
+  * `newton_solve`: full Newton (`hess_refresh=1` or the dense solver:
+    Hessian, residual and solve every iteration, an energy-only
+    backtracking line search) or the macro/micro modified Newton of the
+    JAX package (operator rebuilt every `hess_refresh` iterations,
+    residual fresh every iteration, the line search on the fused
+    energy+force evaluation).
+  * `solve_adjoint`: the dense solve on the dense path; otherwise
+    restarted GMRES on the adjoint's true (indefinite) Hessian,
+    right-preconditioned by the BCR solve of each cloth's tridiagonal
+    (`gridsolve.GridPreconditioner`). The MINRES branch of the JAX package
+    (scenes without a cloth grid plan) and CG without a DIA plan (the pull
+    path) are not ported.
 
 The JAX package runs these loops as `lax.while_loop`s on the device. Here
 they are Python loops: every loop test reads one scalar back to the host
@@ -63,13 +69,23 @@ def _safe_div(num, den):
                              torch.full_like(den, tiny))
 
 
+def solve_dense(spec: SceneSpec, groups, F):
+    """LU solve of the assembled Hessian, H p = F. `solve_ex` without its
+    error check keeps the JAX solve's semantics on a singular H (inf/NaN,
+    no exception): the adjoint solves the true, possibly indefinite
+    Hessian."""
+    H = elements.dense_hessian(spec, groups)
+    p, _info = torch.linalg.solve_ex(H, F.reshape(-1), check_errors=False)
+    return p.reshape(-1, 3)
+
+
 def prepare_solver_state(spec: SceneSpec, groups, dtype):
     """Everything the iterative solve needs, built once per operator: the
     DIA store, the leftover pull blocks, the preconditioner diagonals and
     the split contact blocks."""
     if spec.dia is None:
-        raise NotImplementedError("scenes without a DIA plan (the pull and "
-                                  "dense paths) are not ported yet")
+        raise NotImplementedError("CG on a scene without a DIA plan (the "
+                                  "pull path) is not ported yet")
     st = {"H": groups["H"], "idx": groups["idx"]}
     st["dia"] = elements.assemble_dia(spec, groups, dtype)
     if spec.hvp_slots is not None and spec.hvp_slots.D > 0:
@@ -128,8 +144,24 @@ def _warm_split(A, F, x0):
 def solve_cg_prepared(spec: SceneSpec, st, F, return_iters=False, x0=None):
     """Block-Jacobi PCG on H p = F (frozen-masked), warm-started from x0."""
     if spec.dia is None:
-        raise NotImplementedError("CG without a DIA plan is not ported yet")
+        raise NotImplementedError("CG on a scene without a DIA plan (the "
+                                  "pull path) is not ported yet")
     return _solve_cg_prepared_T(spec, st, F, return_iters=return_iters, x0=x0)
+
+
+def solve_cg(spec: SceneSpec, groups, F, x0=None, return_iters=False):
+    """PCG on the operator of one element group (built here)."""
+    return solve_cg_prepared(spec, prepare_solver_state(spec, groups, F.dtype),
+                             F, return_iters=return_iters, x0=x0)
+
+
+def solve_linear(spec: SceneSpec, groups, F, x0=None, return_iters=False):
+    """The forward Newton direction: the dense solve (x0 unused, 0
+    iterations) or PCG warm-started from x0."""
+    if spec.solver == "dense":
+        p = solve_dense(spec, groups, F)
+        return (p, 0) if return_iters else p
+    return solve_cg(spec, groups, F, x0=x0, return_iters=return_iters)
 
 
 def _solve_cg_prepared_T(spec: SceneSpec, st, F, return_iters=False,
@@ -227,8 +259,7 @@ def _ops_from_state(spec: SceneSpec, st):
     operator state."""
     if spec.dia is None:
         raise NotImplementedError("operators without a DIA plan (the pull "
-                                  "and element-scatter paths) are not "
-                                  "ported yet")
+                                  "path) are not ported yet")
     groups = {"idx": st["idx"], "H": st["H"]}
     for k in ("Dcon", "idx_con", "H_con", "mm_S", "mm_H"):
         if k in st:
@@ -377,13 +408,14 @@ def _gmres_loop(A, M, b, tol, m, max_total=None, x0=None,
 
 
 def solve_adjoint(spec: SceneSpec, groups, F, x0=None, return_iters=False):
-    """Linear solve of the backward sweep: grid-preconditioned GMRES on a
-    scene with a DIA cloth plan. x0: optional warm start (the previous
-    backward step's solution), optimally scaled so that it is never worse
-    than a cold start."""
+    """Linear solve of the backward sweep: direct on the dense path (0
+    iterations, x0 unused), grid-preconditioned GMRES on a scene with a
+    DIA cloth plan. x0: optional warm start (the previous backward step's
+    solution), optimally scaled so that it is never worse than a cold
+    start."""
     if spec.solver == "dense":
-        raise NotImplementedError("the dense adjoint solve (solver='dense') "
-                                  "is not ported yet")
+        x = solve_dense(spec, groups, F)
+        return (x, 0) if return_iters else x
     if spec.dia is None or not spec.dev.grid_plan:
         raise NotImplementedError("the MINRES adjoint solve (scenes without "
                                   "a DIA cloth grid plan) is not ported yet")
@@ -393,50 +425,94 @@ def solve_adjoint(spec: SceneSpec, groups, F, x0=None, return_iters=False):
 def newton_solve(spec: SceneSpec, params, pos0, prev_pos, vel, ref_angle,
                  contact, stats=None):
     """Minimize the incremental potential from the inertia predictor.
-    Returns the converged positions.
+    Returns the converged positions. Both branches stop at max_newton_iter
+    or when max|p|/dt < newton_tol, and on a failed line search (alpha
+    below linesearch_min_alpha) leave the last trial's step applied, as
+    the reference does.
 
-    Modified Newton (spec.hess_refresh > 1): each macro iteration rebuilds
+    Full Newton (hess_refresh == 1 or the dense solver): every iteration
+    builds the SPD-projected element Hessians and the residual, solves
+    for p (warm-started from the previous direction; unused by the dense
+    solve) and line-searches E(pos - alpha p) < E0 on the energy alone,
+    halving alpha.
+
+    Modified Newton (hess_refresh > 1, CG): each macro iteration rebuilds
     the operator (element Hessians, DIA store, preconditioner) and runs up
     to `hess_refresh` micro iterations on it; a micro iteration solves for
-    the direction p (warm-started from the previous one), line-searches
-    E(pos - alpha p) < E0 by halving alpha, and takes the accepted trial's
-    forces as the next residual. It stops when it reaches max_newton_iter
-    or max|p|/dt < newton_tol. `stats` (a dict) accumulates the counts
-    newton_iters, hess_builds, cg_iters and ls_trials."""
-    refresh = max(1, spec.hess_refresh)
-    if refresh == 1 or spec.solver == "dense":
-        raise NotImplementedError(
-            "the hess_refresh=1 Newton branch and the dense solver are not "
-            "ported yet; the bench forward runs modified Newton on 'cg'")
+    p (warm-started), line-searches on the fused energy+force evaluation
+    and takes the accepted trial's forces as the next residual.
+
+    `stats` (a dict) accumulates the counts newton_iters, hess_builds,
+    cg_iters and ls_trials, and appends each call's Newton iterations to
+    newton_per_step."""
     if stats is not None:
         for k in ("newton_iters", "hess_builds", "cg_iters", "ls_trials"):
             stats.setdefault(k, 0)
+        stats.setdefault("newton_per_step", [])
 
     x_hat = pos0 + vel * spec.dt + (
         spec.gravity + spec.ext_force / spec.mass[:, None]) * spec.dt**2
     start = torch.where(spec.frozen, pos0, x_hat)
+    if max(1, spec.hess_refresh) == 1 or spec.solver == "dense":
+        pos, it = _newton_full(spec, params, start, prev_pos, vel, ref_angle,
+                               contact, stats)
+    else:
+        pos, it = _newton_modified(spec, params, start, prev_pos, vel,
+                                   ref_angle, contact, stats)
+    if stats is not None:
+        stats["newton_per_step"].append(it)
+    return pos
 
-    def ls_ef(pos, p, E0, soups, dsoups):
-        """Backtracking line search on the fused energy+force evaluation.
-        On success the accepted (alpha, E, g); on failure (alpha below
-        linesearch_min_alpha) the last trial's step stays applied, as in
-        the reference. Returns (new_pos, E, g, applied alpha)."""
-        EF = elements.linesearch_ef_fn(spec, params, pos, p, prev_pos, vel,
-                                       ref_angle, contact, soups, dsoups)
-        alpha = 1.0
-        while True:
-            E, g = EF(alpha)
-            if stats is not None:
-                stats["ls_trials"] += 1
-            if bool(E < E0):  # host sync
-                applied = alpha
-                break
-            applied = alpha
-            alpha *= 0.5
-            if not alpha > spec.linesearch_min_alpha:
-                break
-        return pos - applied * p, E, g, applied
 
+def _backtrack(spec, trial, E0, stats):
+    """Halve alpha from 1 until trial(alpha)[0] < E0 or alpha falls to
+    linesearch_min_alpha: (applied alpha, trial's outputs). On failure the
+    last trial is the applied one (the JAX loop's alpha * 2)."""
+    alpha = 1.0
+    while True:
+        out = trial(alpha)
+        if stats is not None:
+            stats["ls_trials"] += 1
+        applied = alpha
+        if bool(out[0] < E0):  # host sync
+            return applied, out
+        alpha *= 0.5
+        if not alpha > spec.linesearch_min_alpha:
+            return applied, out
+
+
+def _newton_full(spec, params, start, prev_pos, vel, ref_angle, contact,
+                 stats):
+    """The full-Newton branch (JAX `cond`/`body`): (positions, iterations)."""
+    pos = start
+    E0 = elements.total_energy(spec, params, start, prev_pos, vel, ref_angle,
+                               contact)
+    it = 0
+    delta = torch.tensor(1e5, dtype=start.dtype, device=start.device)
+    p_prev = torch.zeros_like(start)
+    while it < spec.max_newton_iter and bool(delta >= spec.newton_tol):
+        groups = elements.all_groups(spec, params, pos, ref_angle, contact,
+                                     with_hess=True, spd=True)
+        F = elements.assemble_residual(spec, groups, pos, prev_pos, vel)
+        p, n_cg = solve_linear(spec, groups, F, x0=p_prev, return_iters=True)
+        delta = torch.amax(torch.abs(p)) / spec.dt
+        E_of = elements.linesearch_energy_fn(spec, params, pos, p, prev_pos,
+                                             vel, ref_angle, contact)
+        applied, (E0,) = _backtrack(spec, lambda a: (E_of(a),), E0, stats)
+        pos = pos - applied * p
+        p_prev = p
+        it += 1
+        if stats is not None:
+            stats["newton_iters"] += 1
+            stats["hess_builds"] += 1
+            stats["cg_iters"] += n_cg
+    return pos, it
+
+
+def _newton_modified(spec, params, start, prev_pos, vel, ref_angle, contact,
+                     stats):
+    """The macro/micro modified-Newton branch: (positions, iterations)."""
+    refresh = max(1, spec.hess_refresh)
     pos = start
     E0 = elements.total_energy(spec, params, start, prev_pos, vel, ref_angle,
                                contact)
@@ -467,7 +543,11 @@ def newton_solve(spec: SceneSpec, params, pos0, prev_pos, vel, ref_angle,
                                         x0=p_prev)
             d_new = torch.amax(torch.abs(p)) / spec.dt
             dsoups = elements.gather_soups(spec, contact, p, direction=True)
-            new_pos, E_new, g_new, applied = ls_ef(pos, p, E0, soups, dsoups)
+            EF = elements.linesearch_ef_fn(spec, params, pos, p, prev_pos,
+                                           vel, ref_angle, contact, soups,
+                                           dsoups)
+            applied, (E_new, g_new) = _backtrack(spec, EF, E0, stats)
+            new_pos = pos - applied * p
             F = elements.assemble_residual(
                 spec, {"idx": op["idx"], "g": g_new}, new_pos, prev_pos, vel)
             soups = {k: soups[k] - applied * dsoups[k] for k in soups}
@@ -476,4 +556,4 @@ def newton_solve(spec: SceneSpec, params, pos0, prev_pos, vel, ref_angle,
             if stats is not None:
                 stats["newton_iters"] += 1
                 stats["cg_iters"] += n_cg
-    return pos
+    return pos, it

@@ -5,7 +5,7 @@
   1. effector action: the rigid gripper update writes the pads' boundary
   2. snapshot prev_pos, vertex normals
   3. projection query (latched contact side) + contact analysis
-  4. modified Newton on the incremental potential
+  4. Newton on the incremental potential (full or modified)
   5. damped velocity update and the plastic reference-angle gate
 
 The JAX rollout is a `lax.scan`; here it is a Python loop over steps.
@@ -48,6 +48,10 @@ def update_ref_angle_gate(spec: SceneSpec, pos, ref_angle):
     return new_ref, yielded
 
 
+def update_ref_angle(spec: SceneSpec, pos, ref_angle):
+    return update_ref_angle_gate(spec, pos, ref_angle)[0]
+
+
 def build_contacts(spec: SceneSpec, params: Params, pos, prev_pos, proj_flag,
                    proj_dir):
     vn = collision.vertex_normals(pos, spec.faces, spec.NV)
@@ -61,8 +65,6 @@ def build_contacts(spec: SceneSpec, params: Params, pos, prev_pos, proj_flag,
 def time_step(spec: SceneSpec, params: Params, state: SimState, action,
               stats=None):
     """action: (delta_pos (G,3), delta_rot (G,3), delta_dis (G,))."""
-    if spec.plastic:
-        raise NotImplementedError("plastic scenes are not ported yet")
     delta_pos, delta_rot, delta_dis = (
         torch.as_tensor(a, dtype=spec.dtype, device=state.pos.device)
         for a in action)
@@ -78,10 +80,11 @@ def time_step(spec: SceneSpec, params: Params, state: SimState, action,
     new_vel = (new_pos - prev_pos) * (spec.damping / spec.dt)
     # the yield predicate is evaluated for every scene (the reference's
     # backward gate recomputes it); the ref angle moves only on plastic
-    # scenes, which raise above
-    _new_ref, yield_gate = update_ref_angle_gate(spec, new_pos,
-                                                 state.ref_angle)
-    new_state = SimState(pos=new_pos, vel=new_vel, ref_angle=state.ref_angle,
+    # scenes
+    new_ref, yield_gate = update_ref_angle_gate(spec, new_pos,
+                                                state.ref_angle)
+    ref_angle = new_ref if spec.plastic else state.ref_angle
+    new_state = SimState(pos=new_pos, vel=new_vel, ref_angle=ref_angle,
                          proj_flag=proj_flag, proj_dir=proj_dir, gripper=gs)
     aux = StepAux(prev_pos=prev_pos, contact_active=contact.active,
                   newton_pos=new_pos, yield_gate=yield_gate, contact=contact)

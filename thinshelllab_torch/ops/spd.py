@@ -1,10 +1,20 @@
 """Batched PSD-ification of small symmetric blocks and the closed-form
 |D|^-1 of the adjoint preconditioner (counterpart of
-`thinshelllab_tpu/ops/spd.py`, the parts the bench forward and backward
-run)."""
+`thinshelllab_tpu/ops/spd.py`)."""
 from __future__ import annotations
 
 import torch
+
+
+def project_psd(H):
+    """H: (..., k, k) symmetric -> nearest PSD (eigenvalue clamp): the
+    symmetrised blocks' batched `torch.linalg.eigh`, negative eigenvalues
+    set to 0, reassembled. The clamped projection is unique even where
+    the eigenvectors are not (repeated eigenvalues)."""
+    Hs = 0.5 * (H + H.transpose(-1, -2))
+    w, v = torch.linalg.eigh(Hs)
+    w = torch.clamp(w, min=0.0)
+    return torch.einsum("...ik,...k,...jk->...ij", v, w, v)
 
 
 def project_psd_2x2(H):
@@ -53,9 +63,7 @@ def gershgorin_psd(H):
 def project_psd_method(H, method: str):
     if method == "shift":
         return gershgorin_psd(H)
-    raise NotImplementedError(
-        f"spd_method={method!r}: the eigenvalue-clamp projection is not "
-        "ported yet; the bench scene uses 'shift'")
+    return project_psd(H)
 
 
 def _eigvals_sym3(D):

@@ -1,13 +1,26 @@
-"""TaskScene: a built scene plus its task definition (counterpart of the
-`TaskScene` dataclass of `thinshelllab_tpu/scenes/base.py`)."""
+"""TaskScene: a built scene plus its task definition, and the hinge-row
+mask of the folding reward (counterpart of `thinshelllab_tpu/scenes/base.py`:
+`TaskScene` and `hinge_row_mask`)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..core.spec import Params, SceneSpec, SimState
+
+
+def resolve_device(device=None, caller="thinshelllab_torch"):
+    """`device`, or the CUDA card when it is None; no card raises: the CPU
+    is taken only when the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{caller}: no CUDA card; pass device='cpu' to "
+                           "run on the CPU")
+    return torch.device("cuda")
 
 
 @dataclasses.dataclass
@@ -36,11 +49,24 @@ class TaskScene:
         """(spec, state0, params) moved to `device` in one call. The default
         is the CUDA card, and no card raises: the CPU is taken only when the
         caller asks for it (`to("cpu")`)."""
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("TaskScene.to: no CUDA card; pass "
-                                   "device='cpu' to run on the CPU")
-            device = torch.device("cuda")
+        device = resolve_device(device, "TaskScene.to")
         dtype = self.spec.dtype if dtype is None else dtype
         return (self.spec.to(device, dtype), self.state0.to(device, dtype),
                 self.params.to(device, dtype))
+
+
+def hinge_row_mask(builder, cloth_body, row_v0, row_v3):
+    """Mask over the hinge soup selecting hinges whose v0 lies in grid row
+    `row_v0` and whose v3 lies in row `row_v3` of the given cloth (the
+    folding reward; reference Scene_folding.compute_reward:130-147)."""
+    m = builder.bodies[cloth_body].cloth_mesh
+    Mp1 = m.M + 1
+    mask = np.zeros(m.NF * 3, bool)
+    for i in range(m.NF):
+        for l_ in range(3):
+            if m.counter_face[i, l_] > i:
+                v0 = m.f2v[i, l_]
+                v3 = m.f2v[m.counter_face[i, l_], m.counter_point[i, l_]]
+                if v0 // Mp1 == row_v0 and v3 // Mp1 == row_v3:
+                    mask[i * 3 + l_] = True
+    return mask
