@@ -17,7 +17,8 @@ adjoint's (NV, 3) operator and GMRES, the true Hessian of the small and of
 the full bench scene at a perturbed state. The dense path of small scenes
 (no hand kernel: cuSOLVER's batched eigh, the scatter-add assembly with
 atomics, the LU solve) is held against its own CPU results in f64 on the
-small folding scene.
+small folding scene, and one step of every other task scene at its
+published size against the same step on the CPU.
 """
 import dataclasses
 
@@ -333,3 +334,48 @@ def test_dense_path_matches_cpu(cuda):
         err = float((got - want).abs().max() / want.abs().max())
         print(f"{key}: max rel err {err:.3e}")
         assert err <= 1e-10, (key, err)
+
+
+# the task scenes whose contact sets the CPU and the card may decide
+# differently at tied slots (ROADMAP.md §3); the step below shares the
+# CPU's set, and their own sets are not compared
+TIE_SCENES = ("sliding", "card", "pick", "interact")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lifting", "sliding", "card", "pick",
+                                  "forming", "balancing", "bouncing",
+                                  "interact"])
+def test_scene_step_matches_cpu(cuda, name):
+    """Each task scene built on the card at its published size: one f64
+    step (the pads 0.2 mm down, Newton capped at 5) against the same step
+    on the CPU, both minimising with the CPU's contact set; the card's own
+    contact set has the CPU's active flags where no slot ties."""
+    from thinshelllab_torch.engine import gripper
+    from thinshelllab_torch.scenes import registry
+
+    sc = registry.make_scene(name, solver="auto", max_newton_iter=5)
+    n = sc.n_part
+    act = (torch.zeros((n, 3), dtype=torch.float64),
+           torch.zeros((n, 3), dtype=torch.float64),
+           torch.zeros((n,), dtype=torch.float64))
+    act[0][:, 2] = -2e-4
+    out, contact = {}, None
+    for dev in (torch.device("cpu"), cuda):
+        spec, s0, params = sc.to(dev, torch.float64)
+        gs = gripper.gripper_step(spec, s0.gripper,
+                                  *(a.to(dev) for a in act))
+        pos = gripper.write_bound_vertices(spec, s0.pos, gs)
+        own, _, _ = stepper.build_contacts(spec, params, pos, pos,
+                                           s0.proj_flag, s0.proj_dir)
+        if contact is None:
+            contact = own
+        elif name not in TIE_SCENES:
+            assert torch.equal(own.active.cpu(), contact.active)
+        out[dev.type] = solver.newton_solve(
+            spec, params, pos, pos, s0.vel, s0.ref_angle,
+            contact.to(dev, torch.float64))
+    assert int(contact.active.sum()) > 0
+    err = float((out["cuda"].cpu() - out["cpu"]).abs().max())
+    print(f"{name}: max |dpos| card vs CPU {err:.3e} m")
+    assert err <= 1e-9, err

@@ -218,12 +218,13 @@ def test_cli_unknown_env_raises_the_listing():
     with pytest.raises(KeyError) as jerr:
         jregistry.make_scene("nope")
     with pytest.raises(KeyError, match=r"unknown scene 'nope'; available: "
-                       r"\['bench', 'folding'\]") as err:
+                       r"\['balance', 'balancing', 'bench', 'bouncing', "
+                       r"'card', 'folding', 'forming', 'interact', "
+                       r"'lifting', 'pick', 'pick_fold', 'separating', "
+                       r"'sliding', 'throwing'\]") as err:
         cli.main(["trajopt", "--platform", "cpu", "--env", "nope"])
-    prefix = "unknown scene 'nope'; available: ["
-    assert str(err.value).strip("\"'").startswith(prefix)
-    assert str(jerr.value).strip("\"'").startswith(prefix)
-    assert sorted(registry.SCENES) == ["bench", "folding"]
+    assert str(err.value) == str(jerr.value)
+    assert sorted(registry.SCENES) == sorted(jregistry.SCENES)
 
 
 def test_cli_unported_options_raise():
@@ -235,8 +236,6 @@ def test_cli_unported_options_raise():
     base = ["trajopt", "--platform", "cpu", "--iter", "1"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(base + ["--render_every", "1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(base + ["--load_state", "state.npz"])
     with pytest.raises(NotImplementedError, match="fwd_chunk"):
         cli.main(base + ["--fwd_chunk", "10"])
 

@@ -2,8 +2,9 @@
 SimState and Params.
 
 Counterpart of `thinshelllab_tpu/core/builder.py`, for the bodies and
-relations the bench scene uses: cloths, cube elastics, tactile pads,
-directed contact pairs, frozen DOFs and a single/paired gripper. Every leaf
+relations the task scenes use: cloths, cube and ball elastics, tactile
+pads, directed contact pairs, frozen DOFs and a single/paired gripper
+(self-contact pairs are not ported). Every leaf
 it makes is numpy and equals the JAX builder's (tests/test_torch_builder.py);
 `SceneSpec.to(device, dtype)` moves the result to a device.
 """
@@ -135,6 +136,15 @@ class SceneBuilder:
         pos = pos + np.asarray(offset)
         return self._add_elastic(mesh, pos, density, E, nu, "neo",
                                  mesh.surfaces, gravity_on)
+
+    def add_ball_elastic(self, offset, density=2000.0, E=5e5, nu=0.0,
+                         gravity_on=True) -> int:
+        mesh = topology.load_ball_mesh()
+        pos = mesh.rest_pos + np.asarray(offset)
+        surfaces = topology.orient_surface_outward(
+            mesh.surfaces, pos, np.asarray(offset, np.float64))
+        return self._add_elastic(mesh, pos, density, E, nu, "neo", surfaces,
+                                 gravity_on)
 
     def add_tactile(self, offset, flip: bool, ratio: float, density=2000.0,
                     E=3e5, nu=0.2, gravity_on=False) -> int:

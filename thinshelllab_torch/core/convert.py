@@ -6,8 +6,11 @@ their nested dataclasses) into the port's dataclass of the same name:
 numpy leaves are copied, static fields kept, the spec's dtype and SpMV
 route renamed to the port's. `traj_agent_from_reference` and
 `adam_state_from_reference` carry a trajectory optimisation's waypoint
-table and optimizer state. It reads attributes only, so this module
-imports no JAX; the tests use it to feed one scene to both packages.
+table and optimizer state, `cmaes_from_reference` a CMA-ES strategy.
+`tape_from_entries` rebuilds a JAX tape kept flat in a golden file, and
+`golden_grad_errors` measures an adjoint's gradients against the ones kept
+beside it. It reads attributes only, so this module imports no JAX; the
+tests and chip_smoke.py use it to feed one scene to both packages.
 """
 from __future__ import annotations
 
@@ -57,6 +60,51 @@ def buffers_from_reference(buffers):
     return out
 
 
+def tape_from_entries(entries, device="cpu"):
+    """The port's tape, on `device`, from the flat numpy entries a golden
+    file keeps the JAX package's `simulate(save_contacts=True)` buffers
+    in: "tape.<key>" and, for the stacked ContactSet, "tape.contact.<field>"
+    (float leaves keep their dtype)."""
+    pre, cpre = "tape.", "tape.contact."
+    tape = {k[len(pre):]: v for k, v in entries.items()
+            if k.startswith(pre) and not k.startswith(cpre)}
+    tape["contact"] = _spec.ContactSet(**{
+        k[len(cpre):]: v for k, v in entries.items() if k.startswith(cpre)})
+    out = buffers_from_reference(tape)
+    c = out["contact"]
+    out["contact"] = c.to(device, c.w.dtype)
+    return {k: v if k == "contact" else v.to(device) for k, v in out.items()}
+
+
+def golden_grad_errors(res, entries, sys_param):
+    """An AdjointResult's gradients against the golden entries
+    "gripper_grad" and "param_grad.<leaf>": (gripper_grad, every Params
+    leaf, the system-ID parameter's own entry), the first two as a fraction
+    of the largest golden entry they compare, the last of itself. The
+    parameter errors are 0 where the golden has none."""
+    from ..train import dp
+
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    want = np.asarray(entries["gripper_grad"])
+    got = arr(res.gripper_grad)
+    if got.shape != want.shape:
+        raise ValueError(f"gripper_grad {got.shape} against {want.shape}")
+    scale = np.abs(want).max()
+    gg = float(np.abs(got - want).max() / (scale if scale > 0 else 1.0))
+    keys = [k for k in entries if k.startswith("param_grad.")]
+    if not keys:
+        return gg, 0.0, 0.0
+    scale = max(np.abs(entries[k]).max() for k in keys)
+    pg = max(float(np.abs(arr(getattr(res.param_grad, k.split(".", 1)[1]))
+                          - entries[k]).max()) for k in keys) / scale
+    field, i = dp._leaf(sys_param)
+    want = float(entries["param_grad." + field][i])
+    got = float(getattr(res.param_grad, field)[i])
+    return gg, pg, abs(got - want) / abs(want)
+
+
 def from_reference(obj):
     """The port's counterpart of a JAX-side spec/state/params object."""
     if obj is None or isinstance(obj, (tuple, list, int, float, str, bool)):
@@ -100,3 +148,18 @@ def adam_state_from_reference(state, device="cpu"):
 
     return AdamState(*(torch.as_tensor(np.array(v, dtype=np.float64),
                                        device=device) for v in state))
+
+
+def cmaes_from_reference(es):
+    """The port's host CMAES with a JAX `CMAES`'s whole state: its sizes
+    and weights, the evolution paths, the covariance and its eigensystem,
+    the generation count, the best point, and its generator's state, so
+    the next ask/tell continue the JAX sequence."""
+    from ..train.cmaes import CMAES
+
+    out = CMAES.__new__(CMAES)
+    for key, v in vars(es).items():
+        out.__dict__[key] = v.copy() if isinstance(v, np.ndarray) else v
+    out.rng = np.random.default_rng()
+    out.rng.bit_generator.state = es.rng.bit_generator.state
+    return out

@@ -171,6 +171,16 @@ def load_tet_mesh(node: str, ele: str, face: str) -> TetMesh:
     return TetMesh(n_verts, n_cells, n_faces, rest, tets, surfaces)
 
 
+def load_ball_mesh() -> TetMesh:
+    """The soft ball of the balancing scenes (reference ball.node/.ele/.face,
+    loaded by Scene_balancing)."""
+    return load_tet_mesh(
+        tetfile.data_path("ball.node"),
+        tetfile.data_path("ball.ele"),
+        tetfile.data_path("ball.face"),
+    )
+
+
 @dataclasses.dataclass
 class TactileMesh(TetMesh):
     is_surface: np.ndarray     # (n_verts,) bool

@@ -671,8 +671,9 @@ def dense_hessian(spec, fused):
     H = md.new_zeros((n * n,))
     H.index_add_(0, (rows * n + cols).reshape(-1), vals.reshape(-1))
     nv3 = spec.NV * 3
-    H = H.reshape(n, n)[:nv3, :nv3]
-    return H + torch.diag(torch.repeat_interleave(md / spec.dt**2, 3))
+    H = H.reshape(n, n)[:nv3, :nv3].contiguous()
+    H.diagonal().add_(torch.repeat_interleave(md / spec.dt**2, 3))
+    return H
 
 
 def gather_neighbor_blocks(spec, fused, x_dtype):

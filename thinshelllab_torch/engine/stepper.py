@@ -17,7 +17,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.spec import ContactSet, Params, SceneSpec, SimState
+from ..core.spec import (ContactSet, GripperState, Params, SceneSpec,
+                         SimState)
 from ..ops import collision, energies
 from . import gripper, solver
 
@@ -89,6 +90,40 @@ def time_step(spec: SceneSpec, params: Params, state: SimState, action,
     aux = StepAux(prev_pos=prev_pos, contact_active=contact.active,
                   newton_pos=new_pos, yield_gate=yield_gate, contact=contact)
     return new_state, aux
+
+
+def replay_step(spec: SceneSpec, params: Params, buffers, t: int, action,
+                vel0):
+    """Step t+1 of a recorded tape (the `simulate(save_contacts=True)`
+    buffers, of this package or carried from the JAX package) from the
+    tape's own state at t: its gripper moved by `action`, Newton minimising
+    with the contact set the recorded step used. The velocity at t is
+    `vel0` for t = 0 and is rebuilt from the tape's positions otherwise.
+    Returns the Newton positions; the recording holds its own as
+    buffers["pos"][t + 1]."""
+    def grip(i):
+        return GripperState(pos=buffers["gripper_pos"][i],
+                            rot=buffers["gripper_rot"][i],
+                            dist=buffers["gripper_dist"][i],
+                            pad_local=buffers["pad_local"][i])
+
+    pos_t = buffers["pos"][t]
+    vel = vel0
+    if t > 0:
+        prev = gripper.write_bound_vertices(spec, buffers["pos"][t - 1],
+                                            grip(t))
+        vel = (pos_t - prev) * (spec.damping / spec.dt)
+    delta_pos, delta_rot, delta_dis = (
+        torch.as_tensor(a, dtype=spec.dtype, device=pos_t.device)
+        for a in action)
+    gs = gripper.gripper_step(spec, grip(t), delta_pos, delta_rot,
+                              delta_dis)
+    pos = gripper.write_bound_vertices(spec, pos_t, gs)
+    c = buffers["contact"]
+    contact = ContactSet(**{f.name: getattr(c, f.name)[t]
+                            for f in dataclasses.fields(ContactSet)})
+    return solver.newton_solve(spec, params, pos, pos, vel,
+                               buffers["ref_angle"][t], contact)
 
 
 def rollout(spec: SceneSpec, params: Params, state: SimState, actions,

@@ -1,8 +1,9 @@
 """TetGen-format .node/.ele/.face parsers (counterpart of
 `thinshelllab_tpu/io/tetfile.py`).
 
-The tactile pad's mesh files (`tactile.node/.ele/.face`) are kept in this
-package's own `data/` directory.
+The mesh files of the tactile pad (`tactile.node/.ele/.face`) and of the
+balancing scenes' ball (`ball.node/.ele/.face`) are kept in this package's
+own `data/` directory.
 """
 from __future__ import annotations
 

@@ -12,9 +12,33 @@ def project_psd(H):
     set to 0, reassembled. The clamped projection is unique even where
     the eigenvectors are not (repeated eigenvalues)."""
     Hs = 0.5 * (H + H.transpose(-1, -2))
-    w, v = torch.linalg.eigh(Hs)
+    w, v = _eigh(Hs)
     w = torch.clamp(w, min=0.0)
     return torch.einsum("...ik,...k,...jk->...ij", v, w, v)
+
+
+def _eigh(Hs):
+    """`torch.linalg.eigh` on the blocks' own device; float32 blocks are
+    decomposed in float64 and the result cast back. In float32 cuSOLVER's
+    batched Jacobi solver refused ill-conditioned 9x9 element Hessians of
+    lifting and sliding and returned NaN for finite 12x12 batches of
+    sliding without raising (PERF.md, `scripts/probe_eigh_fault.py`).
+    A refusal, or a non-finite result, for finite blocks raises; non-finite
+    blocks give NaN, as the JAX package's eigh does."""
+    H = Hs.double() if Hs.dtype == torch.float32 else Hs
+    try:
+        w, v = torch.linalg.eigh(H)
+        ok = bool(torch.isfinite(w).all() & torch.isfinite(v).all())
+    except torch.linalg.LinAlgError:
+        ok = False
+    if not ok:
+        if bool(torch.isfinite(H).all()):
+            raise torch.linalg.LinAlgError(
+                f"eigh failed on a finite {H.dtype} batch of shape "
+                f"{tuple(H.shape)} on {H.device}")
+        nan = torch.full_like(Hs, float("nan"))
+        return nan[..., 0], nan
+    return w.to(Hs.dtype), v.to(Hs.dtype)
 
 
 def project_psd_2x2(H):

@@ -1,6 +1,6 @@
 """TaskScene: a built scene plus its task definition, and the hinge-row
-mask of the folding reward (counterpart of `thinshelllab_tpu/scenes/base.py`:
-`TaskScene` and `hinge_row_mask`)."""
+mask of the folding and pick rewards (counterpart of
+`thinshelllab_tpu/scenes/base.py`: `TaskScene` and `hinge_row_mask`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -53,6 +53,26 @@ class TaskScene:
         dtype = self.spec.dtype if dtype is None else dtype
         return (self.spec.to(device, dtype), self.state0.to(device, dtype),
                 self.params.to(device, dtype))
+
+
+def with_pre_curl_ref_angle(spec, state0):
+    """state0 with the plastic rest angles its pre-curled cloth yields at
+    build (init_fold -> init_ref_angle, model_fold_offset.py:1053-1057),
+    computed in the scene's dtype from the builder's arrays, as the JAX
+    package does."""
+    from ..engine.stepper import update_ref_angle
+
+    ref0 = update_ref_angle(spec.replace(cloth=spec.cloth.to("cpu",
+                                                             spec.dtype)),
+                            torch.as_tensor(state0.pos),
+                            torch.as_tensor(state0.ref_angle))
+    return state0.replace(ref_angle=ref0.numpy())
+
+
+def like(a, ref):
+    """`a` (a host array or list) as a tensor with `ref`'s dtype and
+    device: the scenes' masks and targets meet the buffers this way."""
+    return torch.as_tensor(a, dtype=ref.dtype, device=ref.device)
 
 
 def hinge_row_mask(builder, cloth_body, row_v0, row_v3):

@@ -1,6 +1,7 @@
 """Cloth initial-position generators (host-side numpy; counterpart of
 `thinshelllab_tpu/scenes/cloth_init.py`, reference model_fold_offset.py
-init_pos_offset:826-838, init_pos_offset_fold:841-868)."""
+init_pos_offset:826-838, init_pos_offset_fold:841-868,
+init_ref_angle_bridge:812-822)."""
 from __future__ import annotations
 
 import numpy as np
@@ -41,3 +42,19 @@ def grid_fold(N, M, dx, ox, oy, oz, half_curv_num):
 
 def fold_radius(dx, half_curv_num=2):
     return dx * (half_curv_num * 2 - 1) / PI_REF
+
+
+def ref_angle_bridge(mesh, M, value=1.7):
+    """Plastic arch pre-set (reference init_ref_angle_bridge :812-822):
+    hinges whose v0 is in row 4 & v3 in row 6, or rows 9 & 11."""
+    ref = np.zeros(mesh.NF * 3)
+    for i in range(mesh.NF):
+        for l_ in range(3):
+            if mesh.counter_face[i, l_] > i:
+                p = mesh.f2v[mesh.counter_face[i, l_], mesh.counter_point[i, l_]]
+                v0 = mesh.f2v[i, l_]
+                if v0 // (M + 1) == 4 and p // (M + 1) == 6:
+                    ref[i * 3 + l_] = value
+                if v0 // (M + 1) == 9 and p // (M + 1) == 11:
+                    ref[i * 3 + l_] = value
+    return ref

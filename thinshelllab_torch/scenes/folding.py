@@ -14,7 +14,6 @@ import numpy as np
 import torch
 
 from ..core.builder import SceneBuilder
-from ..engine.stepper import update_ref_angle
 from . import base, cloth_init
 
 
@@ -66,25 +65,15 @@ def make(cloth_size=0.1, kb=400.0, mu_cloth_elastic=5.0, curve7=1.0,
     b.set_gripper("single", [pad], [0], [0], np.array([[x, 0.0, 2 * r + 0.0079]]))
 
     spec, state0, params = b.build()
-    # pre-curl yields plastic reference angles at init (init_fold ->
-    # init_ref_angle, model_fold_offset.py:1053-1057), computed in the
-    # scene's dtype from the builder's arrays, as the JAX package does
-    cloth_t = spec.cloth.to("cpu", spec.dtype)
-    ref0 = update_ref_angle(spec.replace(cloth=cloth_t),
-                            torch.as_tensor(state0.pos),
-                            torch.as_tensor(state0.ref_angle))
-    state0 = state0.replace(ref_angle=ref0.numpy())
+    state0 = base.with_pre_curl_ref_angle(spec, state0)
 
     mask7 = base.hinge_row_mask(b, cloth, 6, 8)
     mask8 = base.hinge_row_mask(b, cloth, 7, 9)
 
-    def _mask(m, like):
-        return torch.as_tensor(m, dtype=like.dtype, device=like.device)
-
     def reward(buffers, c7=curve7, c8=curve8):
         ref = buffers["ref_angle"][-1]
-        return -(c7 * torch.sum(ref * _mask(mask7, ref))
-                 + c8 * torch.sum(ref * _mask(mask8, ref)))
+        return -(c7 * torch.sum(ref * base.like(mask7, ref))
+                 + c8 * torch.sum(ref * base.like(mask8, ref)))
 
     def reward_7(buffers):
         return reward(buffers, 1.0, -1.0)
@@ -98,7 +87,8 @@ def make(cloth_size=0.1, kb=400.0, mu_cloth_elastic=5.0, curve7=1.0,
         NH = spec.cloth.hinge_verts.shape[0]
         pos_grad = pos.new_zeros((T, spec.NV, 3))
         ar = pos.new_zeros((T, NH))
-        ar[T - 1] = (curve7 * _mask(mask7, pos) + curve8 * _mask(mask8, pos))
+        ar[T - 1] = (curve7 * base.like(mask7, pos)
+                     + curve8 * base.like(mask8, pos))
         return pos_grad, ar
 
     return base.TaskScene(
