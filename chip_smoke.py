@@ -35,10 +35,28 @@ size: [scenes-golden] holds the CPU tests' small f64 runs against the
 JAX package's saved runs (tests/data/scenes_golden.npz; the scenes whose
 contact ties the two packages decide differently are held on the JAX
 tape instead: each step replayed from the JAX state with the JAX contact
-set, and the backward); [scenes] runs a 3-step f64 forward and
+set, and the backward); [scenes] runs a 1-step f64 forward and
 backward at the published Newton cap; [scenes-trajopt] one f32
 TrajOptDriver iteration of every scene with a gripper; [dp] the system
-identification drivers on bouncing and card.
+identification driver on bouncing.
+
+The engine's iterative paths follow, under `solver="cg"`: [cg-kernels]
+holds both kernels against their plain versions on the DIA plan of each
+task scene (21 to 351 offsets over 1024 or 2048 rows) in f32 and f64;
+[cg-scenes] runs every task scene's f64 forward (CG: the kernels, or on
+folding, whose cloth is too narrow for a plan, the pull operator) and
+backward (GMRES with the BCR preconditioner, or MINRES on folding)
+against the JAX package's runs (tests/data/cg_scenes_golden.npz; the tie
+scenes on the JAX tape), and folding's MINRES backward at published size
+against the dense backward on one tape; [cg-trajopt] one f32
+TrajOptDriver iteration under cg on folding and balancing; [bench-40k] the
+bench at cloth_N=140 (the JAX package's 40k-triangle row: 39,200
+triangles a sheet, so the spatial-hash broadphase) forward and backward,
+both kernels on its 52 MB store, and the hash against the exhaustive
+sweep. [self-contact], run right after the first kernel checks and again
+at the end of the process, holds the self-contact hairpin on the card
+against the CPU and the JAX run (tests/data/hairpin_golden.npz), and counts
+what cuSOLVER's batched eigh returns on its batches as they stand.
 
     python3 chip_smoke.py
 
@@ -47,6 +65,7 @@ card's `nvidia-smi` name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises, exits non-zero and
 prints no result line. Needs CUDA; there is no CPU path.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -110,9 +129,10 @@ FOLD_TRAJ_ATOL = 1e-8
 # CPU-f32 dense figure of 4.3e-3 (BASELINE.md:211, scripts/grad_accuracy.py)
 FOLD_F32_RTOL = 1e-2
 # the published folding trajopt, cut in depth from the reference's 50
-# waypoints (run_trajopt_folding.sh) to make room for the task scenes
-# within the script's time target; its T=50 times are in PERF.md
-FOLD_T, FOLD_ITERS = 10, 1
+# waypoints (run_trajopt_folding.sh) to make room for the task scenes and
+# the cg paths within the script's time target; its T=50 and T=10 times
+# are in PERF.md
+FOLD_T, FOLD_ITERS = 4, 1
 # the shorter rollout of the folding phase timers and f32 spread, and the
 # Newton cap of the profiler pass over its first step
 FOLD_PHASE_STEPS, FOLD_PROFILE_NEWTON = 1, 3
@@ -136,17 +156,69 @@ SCENE_TIES = {
     "interact": "20 contact slots decided differently at the initial state",
 }
 # [scenes]: each scene in f64 at its published Newton cap, T steps of the
-# JAX smoke test's actions (each pad 0.2 mm down a step; T cut from 4 to 3
+# JAX smoke test's actions (each pad 0.2 mm down a step; T cut from 4 to 2
 # for the script's time target, PERF.md); its bound on the displacement
 # (tests/test_scenes.py:36)
-SCENES_T, SCENE_DZ, SCENE_DISP_MAX = 3, -2e-4, 0.05
+SCENES_T, SCENE_DZ, SCENE_DISP_MAX = 2, -2e-4, 0.05
 # [scenes-trajopt]: one f32 TrajOptDriver iteration (the CLI's card
-# default) at this T for every scene with a gripper
-SCENES_TRAJOPT_T = 3
-# [dp]: ParamOptDriver iterations on bouncing and one ParamCMAESDriver
-# generation on card, f32 as the CLI runs them on a card (T cut from 3 to
-# 2, one step, for the script's time target, PERF.md)
+# default) at this T for every scene with a gripper (cut from 3 to 2, one
+# step, for the script's time target, PERF.md)
+SCENES_TRAJOPT_T = 2
+# [dp]: ParamOptDriver iterations and one ParamCMAESDriver generation of
+# DP_POP on bouncing, f32 as the CLI runs them on a card (T cut from 3 to
+# 2, one step, and the CMA-ES generation moved from card to bouncing, one
+# scene, for the script's time target, PERF.md)
 DP_T, DP_ITERS, DP_LR, DP_POP = 2, 2, 1.0, 4
+# the task scenes under solver="cg" (tests/test_torch_solver_paths.py
+# made the JAX runs in tests/data/cg_scenes_golden.npz: f64, T=CG_T,
+# max_newton_iter=CG_NEWTON, each pad 0.2 mm down a step; folding, with no
+# DIA plan, at table_n=4 and pressed 0.6 mm a step so that its pad reaches
+# the cloth)
+GOLDEN_CG = os.path.join(ROOT, "tests", "data", "cg_scenes_golden.npz")
+CG_SCENES = ("folding",) + NEW_SCENES
+CG_T, CG_NEWTON = 2, 5
+CG_FOLD_TABLE_N, CG_FOLD_DZ = 4, -6e-4
+# a tie scene's step replayed on the JAX tape in which some CG solve
+# stopped at its cap of cg_max_iter: the unconverged remainder carries the
+# rounding of the two packages' arithmetic. The same arithmetic (JAX's f64
+# preconditioner, the JAX state and contact set) leaves them 2.2e-8 m
+# apart on card's second step and 6.3e-9 m on pick's first (PERF.md);
+# 1e-7 m is 1/2000 of the pads' 0.2 mm step, where a wrong operator or
+# preconditioner moves them by a fair part of it. The scenes without ties
+# (lifting, forming, balancing, bouncing, folding) are held to
+# SCENE_POS_ATOL even where their solves stop at the cap
+CAPPED_POS_ATOL = 1e-7
+# the iterations of a GMRES or MINRES solve on inputs that differ by
+# rounding (the exit test's last iteration may fall either side): gated
+# within this slack. The forward CG iterations are printed beside the
+# golden's, not gated: on the card the preconditioner is the fused
+# dia_precond kernel, which drops the leftover pull rows' off-diagonal
+# couplings, and the golden ran the JAX package's XLA polynomial, which
+# keeps them (the JAX package takes its kernel only in f32 on a TPU)
+CG_ITER_SLACK = 2
+# folding at its published size: the MINRES backward against the dense
+# backward on one tape, max |d| / max |dense| of gripper_grad (the bound
+# tests/test_assembly.py holds one MINRES solve to)
+MINRES_DENSE_RTOL = 1e-6
+# [cg-trajopt]: one f32 TrajOptDriver iteration under solver="cg" at this
+# T. Folding's waypoint table presses its pads CG_FOLD_DZ a step over two
+# steps: over one step (T=2) its gripper gradient is exactly 0, pressed or
+# not, and the comparison with the f64 backward would measure nothing
+CG_TRAJOPT_T = {"folding": 3, "balancing": 2}
+# [bench-40k]: the bench at the JAX package's 40k-triangle row
+# (BENCH_CLOTH_N=140), the pad pressing as [adjoint-press] does
+BENCH40K_N, BENCH40K_T = 140, 4
+# the hash against the exhaustive sweep: the JAX package's criterion
+# (tests/test_collision.py:181-222)
+HASH_DIST_ATOL = 1.01e-5
+# [self-contact]: the hairpin (thinshelllab_torch/scenes/hairpin.py) on the
+# card against the CPU and against the JAX run
+# (tests/data/hairpin_golden.npz)
+GOLDEN_HAIRPIN = os.path.join(ROOT, "tests", "data", "hairpin_golden.npz")
+# the JAX package's hash projection of the 40k bench's initial positions in
+# f64 (tests/test_torch_collision_hash.py writes it)
+GOLDEN_HASH40K = os.path.join(ROOT, "tests", "data", "hash40k_golden.npz")
+HAIRPIN_CPU_ATOL, HAIRPIN_JAX_ATOL = 1e-12, 1e-9
 # the card's published peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores, at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -156,6 +228,9 @@ FLUSH_BYTES = 64 * 2**20
 # a store whose f32 slice per CTA overflows shared memory: the bench's 71
 # offsets over 16384 rows (128 rows a CTA, 46 of 71 lanes held on an H100)
 SPILL_NVP = 16384
+
+
+T_START = time.perf_counter()
 
 
 def log(msg):
@@ -193,12 +268,40 @@ def call_ms(fn, n=60, warmup=5):
     return a.elapsed_time(b) / n
 
 
-def device_ms(fn, n=60, key=None, cold=False, tries=3):
+def event_ms(fn, n, flush=None):
+    """Device time per call (ms) between two CUDA events around n calls.
+    The stream first sleeps on the card (~60 ms) while the host queues
+    every call behind it, so the events time the calls' kernels back to
+    back and not the host's launches. flush: written before each call; the
+    same n writes alone are timed the same way and taken off."""
+    def queued(call):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        a.record()
+        for _ in range(n):
+            call()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n
+
+    if flush is None:
+        return queued(fn)
+    return (queued(lambda: (flush.fill_(1.0), fn()))
+            - queued(lambda: flush.fill_(1.0)))
+
+
+def device_ms(fn, n=60, key=None, cold=False, tries=2, per_call=None):
     """Device time per call (ms): the summed time of every CUDA kernel the
     n calls ran (of those whose name holds `key`, if given), from the
     profiler's trace of the card. cold: FLUSH_BYTES are written between
-    calls, so that each call finds its inputs outside L2. A trace that holds
-    none of the kernels is taken again, up to `tries` traces in all."""
+    calls, so that each call finds its inputs outside L2. per_call: the
+    kernels a call launches, where known. A trace that holds none of the
+    kernels, or not per_call * n of them, is taken again, up to `tries`
+    traces in all; late in a long process the profiler can return empty or
+    partial traces of the card, and then the calls are timed with CUDA
+    events (event_ms) instead."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = (torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
@@ -214,14 +317,19 @@ def device_ms(fn, n=60, key=None, cold=False, tries=3):
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        mine = [e for e in events if key is None or key in e.key]
         us = sum(getattr(e, "self_device_time_total", None)
-                 or getattr(e, "self_cuda_time_total", 0)
-                 for e in events if key is None or key in e.key)
-        if us > 0:
+                 or getattr(e, "self_cuda_time_total", 0) for e in mine)
+        count = sum(e.count for e in mine)
+        if us > 0 and per_call in (None, count / n):
             return us / 1e3 / n
-        log(f"[profile] no device time of {key or 'any kernel'} in a trace "
-            f"of {[e.key[:50] for e in events]}")
-    raise RuntimeError("the profiler recorded no device time")
+        log(f"[profile] a trace of {count} launches of "
+            f"{key or 'any kernel'} for {n} calls"
+            + (f" of {per_call} launches" if per_call else "")
+            + f", {us:.1f} us: {[e.key[:50] for e in events]}")
+    ms = event_ms(fn, n, flush)
+    log(f"[profile] timed with CUDA events instead: {ms:.4f} ms a call")
+    return ms
 
 
 def operator_inputs(sc, device, dtype):
@@ -250,6 +358,20 @@ def bound_ms(n_bytes, n_flop):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / F32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_work(name, dia, sweeps):
+    """(bytes, operations) a kernel call needs on a store of dia's shape:
+    dia_spmv reads the store and x and writes y, 2 operations per store
+    entry; dia_precond reads the store, r, unf and D^-1 and writes z, and
+    per sweep does one SpMV plus the residual, D^-1 product and update on
+    3 NVp rows."""
+    n_off, _, _, NVp = dia.shape
+    it = dia.element_size()
+    if name == "dia_spmv":
+        return (dia.numel() + 6 * NVp) * it + 4 * n_off, 2 * dia.numel()
+    return ((dia.numel() + 18 * NVp) * it + 4 * n_off,
+            sweeps * 2 * dia.numel() + (sweeps + 1) * 24 * NVp)
 
 
 def sparse_matvec(dia, offsets, layout):
@@ -377,9 +499,11 @@ def kernel_checks(sc, device):
             abs_err = float((yk - yp).abs().max())
             rel = abs_err / float(yp.abs().max())
             tol = KERNEL_RTOL[dtype]
-            ms, plain_ms = device_ms(kern), device_ms(plain)
-            cold_ms = device_ms(kern, 30, key=keys[name], cold=True)
+            ms, plain_ms = device_ms(kern, per_call=1), device_ms(plain)
+            cold_ms = device_ms(kern, 30, key=keys[name], cold=True,
+                                per_call=1)
             call, plain_call = call_ms(kern), call_ms(plain)
+            queued = event_ms(kern, 60)  # device_ms's fallback timer
             geo = ""
             if name == "dia_precond":
                 plan, geo = precond_geometry(K, device, NVp, offs, dtype)
@@ -390,25 +514,17 @@ def kernel_checks(sc, device):
                 f"per call: kernel {ms:.4f} ms with a warm L2, {cold_ms:.4f} "
                 f"ms with a cold L2, plain {plain_ms:.4f} ms; per call "
                 f"between CUDA events: kernel {call:.4f} ms, plain "
-                f"{plain_call:.4f} ms (60 calls)")
+                f"{plain_call:.4f} ms (60 calls); kernel queued behind a "
+                f"sleep, between CUDA events {queued:.4f} ms")
             if not rel <= tol:
                 raise AssertionError(f"{name} {dtype}: kernel disagrees with "
                                      f"its plain version ({rel:.3e} > {tol})")
             if per_call != 1:
                 raise AssertionError(f"{name}: {per_call} launches per call")
-            it = dia.element_size()
+            n_bytes, n_flop = kernel_work(name, dia, sweeps)
             if name == "dia_spmv":
-                # store, x in, y out; 2 operations per store entry
-                n_bytes = (dia.numel() + 2 * x2.numel()) * it + 4 * len(offs)
-                n_flop = 2 * dia.numel()
                 lib, layout, lib_note = library_spmv(dia, x2, offs)
             else:
-                # store, r, unf, D^-1 in, z out; per sweep one SpMV plus
-                # the residual, D^-1 product and update on 3 NVp rows
-                n_bytes = ((dia_pre.numel() + 3 * r2.numel() + dinv.numel())
-                           * it + 4 * len(offs))
-                n_flop = (sweeps * 2 * dia_pre.numel()
-                          + (sweeps + 1) * 24 * NVp)
                 lib, layout, lib_note = None, None, (
                     "none: no single PyTorch call computes the polynomial")
             b_ms, b_by = bound_ms(n_bytes, n_flop)
@@ -791,12 +907,15 @@ def traced(fn):
             if k in e.key:
                 a, n = mine.get(k, (0.0, 0))
                 mine[k] = (a + us, n + e.count)
-    if total_us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
     return out, wall, total_us, total_n, mine, sorted(top)[::-1][:6]
 
 
 def report_trace(tag, wall, total_us, total_n, mine, top=()):
+    if total_us <= 0:
+        log(f"{tag} under the profiler: wall {wall:.3f} s; the trace holds "
+            "no device time (the profiler can stop tracing the card late in "
+            "a long process): device time and busy share not measured")
+        return
     shares = ", ".join(f"{k} {us / 1e3:.2f} ms over {n} launches = "
                        f"{us / total_us:.4f} of device time"
                        for k, (us, n) in sorted(mine.items()))
@@ -1211,8 +1330,8 @@ def scenes_trajopt_phase(device):
 
 def dp_phase(device):
     """System identification as `cli dp` runs it on a card (f32, solver
-    auto, a zero trajectory): ParamOptDriver on bouncing's Kb, one
-    ParamCMAESDriver generation on card's Kb."""
+    auto, a zero trajectory) on bouncing's Kb: ParamOptDriver iterations,
+    then one ParamCMAESDriver generation."""
     from thinshelllab_torch.scenes import registry
     from thinshelllab_torch.train.dp import (ParamCMAESDriver,
                                              ParamOptDriver, _get_param)
@@ -1233,25 +1352,619 @@ def dp_phase(device):
             raise AssertionError(f"dp bouncing: {info}")
     log(f"[dp] bouncing f32 T={DP_T}: {DP_ITERS} ParamOptDriver iterations "
         f"in {time.perf_counter() - t0:.2f} s")
-    sc = registry.make_scene("card", solver="auto", dtype=torch.float32)
     t0 = time.perf_counter()
-    drv = ParamCMAESDriver(sc, zeros(sc.n_part),
-                           base_value=float(_get_param(sc.params, "kb")),
+    drv = ParamCMAESDriver(sc, zeros(0),
+                           base_value=float(_get_param(sc.params,
+                                                       sc.sys_param)),
                            pop_size=DP_POP, device=device)
     info = drv.generation()
     log(f"gen 0: best_param {info['best_param']:.4f} "
         f"best_reward {info['best_reward']:.5f}")
-    log(f"[dp] card f32 T={DP_T}: one ParamCMAESDriver generation of "
+    log(f"[dp] bouncing f32 T={DP_T}: one ParamCMAESDriver generation of "
         f"{DP_POP} in {time.perf_counter() - t0:.2f} s")
     if not all(np.isfinite(v) for v in info.values()):
-        raise AssertionError(f"dp card: {info}")
+        raise AssertionError(f"dp bouncing CMA-ES: {info}")
+
+
+def store_inputs(spec, s0, params, dtype):
+    """A moved scene's assembled DIA store at its initial state, as the
+    first Newton iteration builds it, and the preconditioner's inputs:
+    (store, store with D on the offset-0 lane, D^-1 in (3, 3, NVp))."""
+    from thinshelllab_torch.engine import elements, solver, stepper
+
+    contact, _, _ = stepper.build_contacts(spec, params, s0.pos, s0.pos,
+                                           s0.proj_flag, s0.proj_dir)
+    groups = elements.all_groups(spec, params, s0.pos, s0.ref_angle, contact,
+                                 with_hess=True, spd=True)
+    st = solver.prepare_solver_state(spec, groups, dtype)
+    NV, NVp = spec.NV, spec.dia.NVp
+    dia_pre = st["dia"].clone()
+    dia_pre[spec.dev.off0, :, :, :NV] = st["D"].permute(1, 2, 0)
+    dinv = st["D"].new_zeros((3, 3, NVp))
+    dinv[:, :, :NV] = solver._inv3x3(st["D"]).permute(1, 2, 0)
+    return st["dia"], dia_pre, dinv
+
+
+def plan_kernel_check(tag, sc, device, dtype, seed=0):
+    """Both kernels on a scene's own plan: its assembled store at the
+    initial state (in dtype), random seeded vectors, each held against its
+    plain version within KERNEL_RTOL, one launch a call, the warm device
+    time and the bound. Returns {kernel: {ms, bound_ms, ...}}."""
+    from thinshelllab_torch.ops import dia_spmv as K
+
+    spec, s0, params = sc.to(device, dtype)
+    dia, dia_pre, dinv = store_inputs(spec, s0, params, dtype)
+    plan, unf2 = spec.dia, spec.dev.unf2
+    offs, offs_t, NVp = plan.offsets, spec.dev.offsets_t, plan.NVp
+    rng = np.random.default_rng(seed)
+    x2 = torch.as_tensor(rng.normal(size=(3, NVp)), dtype=dtype,
+                         device=device) * unf2
+    r2 = torch.as_tensor(rng.normal(size=(3, NVp)), dtype=dtype,
+                         device=device) * unf2
+    w, sweeps = spec.precond_omega, spec.precond_smooth
+    pplan, geo = precond_geometry(K, device, NVp, offs, dtype)
+    cases = {
+        "dia_spmv": (lambda: K.dia_spmv(dia, x2, offs, offs_t),
+                     lambda: K.dia_spmv_plain(dia, x2, offs)),
+        "dia_precond": (
+            lambda: K.dia_precond(dia_pre, r2, unf2, dinv, offs, w, sweeps,
+                                  offs_t),
+            lambda: K.dia_precond_plain(dia_pre, r2, unf2, dinv, offs, w,
+                                        sweeps)),
+    }
+    out, parts = {}, []
+    for name, (kern, plain) in cases.items():
+        K.reset_launches()
+        yk = kern()
+        torch.cuda.synchronize()
+        per_call = K.LAUNCHES[name]
+        yp = plain()
+        abs_err = float((yk - yp).abs().max())
+        rel = abs_err / float(yp.abs().max())
+        ms = device_ms(kern, n=20, per_call=1)
+        plain_ms = call_ms(plain, n=10, warmup=2)
+        b_ms, b_by = bound_ms(*kernel_work(name, dia, sweeps))
+        parts.append(f"{name} max rel err {rel:.3e}, {per_call} launch a "
+                     f"call, device {ms:.4f} ms against a bound of "
+                     f"{b_ms:.4f} ms by {b_by} (plain {plain_ms:.4f} ms "
+                     f"between CUDA events)")
+        if not rel <= KERNEL_RTOL[dtype] or per_call != 1:
+            raise AssertionError(f"{tag} {name} {dtype}: error {rel:.3e} "
+                                 f"(tol {KERNEL_RTOL[dtype]}), {per_call} "
+                                 "launches a call")
+        out[name] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=abs_err, plain_call_ms=plain_ms)
+    mb = dia.numel() * dia.element_size() / 1e6
+    log(f"{tag} {str(dtype)[6:]}: n_off {len(offs)}, NVp {NVp}, max |offset| "
+        f"{max(abs(o) for o in offs)}, store {mb:.2f} MB; {geo}; "
+        + "; ".join(parts) + f" (tol {KERNEL_RTOL[dtype]:.0e})")
+    out["geometry"] = dict(rows=pplan.rows, grid=pplan.grid,
+                           staged=pplan.staged, n_off=len(offs), NVp=NVp)
+    return out
+
+
+def cg_kernel_checks(device):
+    """[cg-kernels]: both kernels on the plan of each DIA task scene under
+    solver="cg", at published size, in f32 and f64."""
+    from thinshelllab_torch.scenes import registry
+
+    out = {}
+    for name in NEW_SCENES:
+        sc = scene_state(name, registry.make_scene(name, solver="cg"), device)
+        if sc.spec.dia is None:
+            raise AssertionError(f"{name} built no DIA plan under cg")
+        out[name] = {str(dt)[6:]: plan_kernel_check(f"[cg-kernels] {name}",
+                                                    sc, device, dt)
+                     for dt in (torch.float32, torch.float64)}
+    return out
+
+
+def first_cg_per_step(stats):
+    """The CG iterations of each step's first Newton solve."""
+    out, i = [], 0
+    for n in stats["newton_per_step"]:
+        out.append(stats["cg_per_newton"][i])
+        i += n
+    return out
+
+
+def cg_actions(name, n_part, dtype, device):
+    dpos = torch.zeros((CG_T, n_part, 3), dtype=dtype, device=device)
+    dpos[:, :, 2] = CG_FOLD_DZ if name == "folding" else SCENE_DZ
+    return (dpos, torch.zeros((CG_T, n_part, 3), dtype=dtype, device=device),
+            torch.zeros((CG_T, n_part), dtype=dtype, device=device))
+
+
+def cg_scene(name, device, published=False):
+    """A task scene as GOLDEN_CG ran it (folding at its published size with
+    `published`)."""
+    from thinshelllab_torch.scenes import registry
+
+    kw = {}
+    if name == "folding" and not published:
+        kw["table_n"] = CG_FOLD_TABLE_N
+    return scene_state(name, registry.make_scene(
+        name, solver="cg", max_newton_iter=CG_NEWTON, dtype=torch.float64,
+        **kw), device)
+
+
+@contextlib.contextmanager
+def jax_f64_preconditioner():
+    """Within the block, CG preconditions with the smoothing polynomial
+    sweep by sweep (solver._polynomial_precond_T, its SpMVs through the
+    dia_spmv kernel), as the JAX package does in f64, instead of the fused
+    dia_precond kernel, which drops the leftover pull rows' off-diagonal
+    couplings. Where CG stops at its cap the two preconditioners leave
+    different iterates, so a comparison with the JAX runs needs this one."""
+    from thinshelllab_torch.engine import elements, solver
+
+    fused = solver._fused_precond_T
+
+    def poly(spec, st, D, Dinv, w, smooth, dtype, unf2):
+        m2 = elements.t2_consts(spec, dtype)[1]
+        return solver._polynomial_precond_T(spec, st, Dinv, w, smooth, dtype,
+                                            unf2, m2)
+
+    solver._fused_precond_T = poly
+    try:
+        yield
+    finally:
+        solver._fused_precond_T = fused
+
+
+def replay_pos_tol(stats, spec):
+    """The position tolerance of a tie scene's step replayed on the JAX
+    tape with these solver stats: SCENE_POS_ATOL, or CAPPED_POS_ATOL where
+    a CG solve stopped at its cap. The other scenes are held to
+    SCENE_POS_ATOL whatever their solves did."""
+    capped = max(stats["cg_per_newton"]) >= spec.cg_max_iter
+    return CAPPED_POS_ATOL if capped else SCENE_POS_ATOL
+
+
+def cg_run(sc, spec, s0, params, acts, tape=None):
+    """Forward (unless a tape is given) and the default seed's backward with
+    debug_iters: (buffers, result, stats, forward s, backward s)."""
+    from thinshelllab_torch.engine import adjoint, stepper
+
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buf = tape
+    if buf is None:
+        _, buf = stepper.simulate(spec, params, s0, acts, stats=stats,
+                                  save_contacts=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = adjoint.backward(spec, params, buf, *sc.seed_loss(buf),
+                           with_param_grad=sc.sys_param is not None,
+                           debug_iters=True)
+    torch.cuda.synchronize()
+    return buf, res, stats, t1 - t0, time.perf_counter() - t1
+
+
+def cg_scenes_phase(device):
+    """[cg-scenes]: every task scene under solver="cg" in f64 on the card,
+    forward (CG with both kernels, or on folding CG on the pull operator)
+    and backward (GMRES + BCR, or MINRES on folding), against the JAX runs
+    in GOLDEN_CG, to SCENE_POS_ATOL. The scenes whose contact ties part
+    them from JAX are held on the JAX tape, each step replayed with JAX's
+    f64 preconditioner (jax_f64_preconditioner) from JAX's state, a step
+    whose CG solve stopped at its cap to CAPPED_POS_ATOL. Then folding
+    at its published size: its MINRES backward against the dense backward
+    on one tape. Returns the kernel launches of the main runs."""
+    from thinshelllab_torch.core.convert import (golden_grad_errors,
+                                                 tape_from_entries)
+    from thinshelllab_torch.engine import stepper
+    from thinshelllab_torch.ops import dia_spmv as K
+
+    z = np.load(GOLDEN_CG)
+    total = {k: 0 for k in K.LAUNCHES}
+    for name in CG_SCENES:
+        g = {k[len(name) + 1:]: z[k] for k in z.files
+             if k.startswith(name + ".")}
+        sc = cg_scene(name, device)
+        spec, s0, params = sc.to(device)
+        acts = cg_actions(name, sc.n_part, spec.dtype, device)
+        K.reset_launches()
+        buf, res, stats, fs, bs = cg_run(sc, spec, s0, params, acts)
+        launches = dict(K.LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        cgs = stats["cg_per_newton"]
+        pos_err = float(np.abs(buf["pos"].cpu().numpy() - g["pos"]).max())
+        gg, pg, sy = golden_grad_errors(res, g, sc.sys_param)
+        plan = (f"DIA n_off {len(spec.dia.offsets)}, NVp {spec.dia.NVp}"
+                if spec.dia is not None else "no DIA plan (pull operator)")
+        solve = "MINRES" if spec.dia is None else "GMRES"
+        log(f"[cg-scenes] {name} f64 T={CG_T}, NV {spec.NV}, {plan}: "
+            f"forward {fs:.2f} s, backward {bs:.2f} s; Newton per step "
+            f"{stats['newton_per_step']}, CG per Newton iteration {cgs} "
+            f"({sum(c >= spec.cg_max_iter for c in cgs)} at the cap "
+            f"{spec.cg_max_iter}); first-solve CG per step "
+            f"{first_cg_per_step(stats)} (JAX {g['cg_first'].tolist()}), "
+            f"{solve} per backward step {res.pos_grad0.tolist()} (JAX "
+            f"{g['adj_iters'].tolist()}); launches {launches}; against the "
+            f"JAX run: max |dpos| {pos_err:.3e} m, gripper_grad {gg:.3e}, "
+            f"param_grad {pg:.3e}, sys_param {sy:.3e}")
+        if not (bool(torch.isfinite(buf["pos"]).all())
+                and bool(torch.isfinite(res.gripper_grad).all())):
+            raise AssertionError(f"{name}: non-finite run")
+        if spec.dia is not None and min(launches.values()) <= 0:
+            raise AssertionError(f"{name}: launches {launches}")
+        if name in SCENE_TIES:
+            tape = tape_from_entries(g, device)
+            replay, tols = [], []
+            with jax_f64_preconditioner():
+                for t in range(CG_T):
+                    st = {}
+                    p = stepper.replay_step(spec, params, tape, t,
+                                            tuple(a[t] for a in acts),
+                                            s0.vel, stats=st)
+                    replay.append(float((p - tape["pos"][t + 1]).abs().max()))
+                    tols.append(replay_pos_tol(st, spec))
+            _, rt, _, _, bt = cg_run(sc, spec, s0, params, acts, tape=tape)
+            t_gg, t_pg, t_sy = golden_grad_errors(rt, g, sc.sys_param)
+            d_it = int(np.abs(rt.pos_grad0.cpu().numpy()
+                              - g["adj_iters"]).max())
+            log(f"[cg-scenes] {name} on the JAX tape ({SCENE_TIES[name]}): "
+                f"each step replayed from the JAX state with the JAX "
+                f"contact set and JAX's f64 preconditioner: max |dpos| "
+                f"{', '.join(f'{e:.3e}' for e in replay)} m (tol "
+                f"{', '.join(f'{e:.0e}' for e in tols)}); backward "
+                f"({bt:.2f} s): gripper_grad {t_gg:.3e}, param_grad "
+                f"{t_pg:.3e} (tol {SCENE_GRAD_RTOL:.0e}), sys_param "
+                f"{t_sy:.3e}; {solve} per step {rt.pos_grad0.tolist()} "
+                f"(within {CG_ITER_SLACK})")
+            ok = (all(e <= tol for e, tol in zip(replay, tols))
+                  and d_it <= CG_ITER_SLACK
+                  and max(t_gg, t_pg) <= SCENE_GRAD_RTOL)
+        else:
+            d_it = int(np.abs(res.pos_grad0.cpu().numpy()
+                              - g["adj_iters"]).max())
+            tol = SCENE_POS_ATOL
+            ok = (pos_err <= tol and d_it <= CG_ITER_SLACK
+                  and max(gg, pg) <= SCENE_GRAD_RTOL)
+            log(f"[cg-scenes] {name}: gated against the JAX run (tol "
+                f"{tol:.0e} m, {SCENE_GRAD_RTOL:.0e} for gripper_grad and "
+                f"param_grad, {solve} iterations within {CG_ITER_SLACK}): "
+                f"{ok}")
+        if not ok:
+            raise AssertionError(f"{name} under cg disagrees with the JAX "
+                                 "run")
+    minres_vs_dense(device)
+    return total
+
+
+def minres_vs_dense(device):
+    """Folding at its published size under cg in f64: the MINRES backward
+    against the dense backward on the same tape."""
+    from thinshelllab_torch.engine import adjoint, stepper
+
+    sc = cg_scene("folding", device, published=True)
+    spec, s0, params = sc.to(device)
+    stats = {}
+    t0 = time.perf_counter()
+    _, buf = stepper.simulate(spec, params, s0,
+                              cg_actions("folding", sc.n_part, spec.dtype,
+                                         device), stats=stats)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    seeds = sc.seed_loss(buf)
+    res = adjoint.backward(spec, params, buf, *seeds)
+    its = adjoint.backward(spec, params, buf, *seeds,
+                           debug_iters=True).pos_grad0.tolist()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ref = adjoint.backward(spec.replace(solver="dense"), params, buf, *seeds)
+    err = rel_err(res.gripper_grad, ref.gripper_grad)
+    log(f"[cg-scenes] folding published (NV {spec.NV}, no DIA plan) f64 "
+        f"T={CG_T}: forward {t1 - t0:.2f} s (Newton per step "
+        f"{stats['newton_per_step']}, CG {stats['cg_iters']}), MINRES "
+        f"backward {t2 - t1:.2f} s for two runs, MINRES per step {its}; "
+        f"gripper_grad max |d| / max |dense| {err:.3e} (tol "
+        f"{MINRES_DENSE_RTOL:.0e}), max |gripper_grad| "
+        f"{float(ref.gripper_grad.abs().max()):.4g}")
+    if spec.dia is not None or not err <= MINRES_DENSE_RTOL:
+        raise AssertionError(f"folding MINRES backward off by {err:.3e}")
+
+
+def cg_trajopt_phase(device):
+    """[cg-trajopt]: one f32 TrajOptDriver iteration under solver="cg" on
+    folding (pull CG, MINRES) and balancing (351 offsets), and the f32
+    folding gradient against an f64 dense backward on its tape."""
+    from thinshelllab_torch.engine import adjoint
+    from thinshelllab_torch.ops import dia_spmv as K
+    from thinshelllab_torch.scenes import registry
+    from thinshelllab_torch.train.trajopt import TrajOptDriver
+
+    for name, T in CG_TRAJOPT_T.items():
+        sc = scene_state(name, registry.make_scene(
+            name, solver="cg", dtype=torch.float32), device)
+        drv = TrajOptDriver(sc, T, lr=1e-3, max_dist=0.015, device=device)
+        if name == "folding":
+            drv.agent.traj[:, :, 2] = CG_FOLD_DZ * np.arange(T)[:, None]
+        K.reset_launches()
+        info = drv.iteration()
+        st = info["stats"]
+        per, cap = st["newton_per_step"], sc.spec.max_newton_iter
+        cgs = st["cg_per_newton"]
+        log(f"[cg-trajopt] {name} f32 T={T}: forward "
+            f"{info['forward_s']:.3f} s, backward {info['backward_s']:.3f} s;"
+            f" Newton per step {per} ({sum(n >= cap for n in per)} at the cap"
+            f" {cap}), CG {st['cg_iters']} in all, per Newton iteration mean "
+            f"{np.mean(cgs):.1f}, max {max(cgs)} ({sum(c >= sc.spec.cg_max_iter for c in cgs)}"
+            f" at the cap {sc.spec.cg_max_iter}); line-search trials "
+            f"{st['ls_trials']}; launches {dict(K.LAUNCHES)}")
+        log(f"iter 0: reward {info['reward']:.6f} |g| "
+            f"{info['grad_norm']:.4g} t {info['wall_time']:.2f}s")
+        if not (np.isfinite(info["reward"])
+                and np.isfinite(info["grad_norm"])):
+            raise AssertionError(f"{name}: reward {info['reward']}, |g| "
+                                 f"{info['grad_norm']}")
+        if name != "folding":
+            continue
+        buf = info["buffers"]
+        spec64, _, params64 = sc.to(device, torch.float64)
+        buf64 = {k: v.double() if v.is_floating_point() else v
+                 for k, v in buf.items()}
+        res64 = adjoint.backward(spec64.replace(solver="dense"), params64,
+                                 buf64, *sc.seed_loss(buf64))
+        g32, g64 = info["gripper_grad"].double(), res64.gripper_grad
+        den = float(torch.linalg.vector_norm(g64))
+        err = float(torch.linalg.vector_norm(g32 - g64)) / den
+        log(f"[cg-trajopt] folding: the f32 MINRES gripper_grad against an "
+            f"f64 dense backward on its tape |g32 - g64| / |g64| {err:.3e} "
+            f"(|g32| {float(torch.linalg.vector_norm(g32)):.4g}, |g64| "
+            f"{den:.4g}; gated on |g64| > 0 and a finite distance)")
+        if not (den > 0 and np.isfinite(err)):
+            raise AssertionError(f"the f32 folding gradient: |g64| {den}, "
+                                 f"distance {err}")
+
+
+def hash_rows(con):
+    """(capacity,) bool: the query slots of the pairs that take the hash."""
+    rows = np.zeros(con.capacity, bool)
+    for hd, (cqs, cnt, _, nf, _) in zip(con.hash_desc, con.pair_desc):
+        if hd is not None and nf >= con.hash_min_faces:
+            rows[cqs : cqs + cnt] = True
+    return rows
+
+
+def hash_compare(con, pos, got, want, rows):
+    """Two projections (flag, dir, tri, w; tensors or arrays) of the numpy
+    positions pos on the query slots `rows`: (flags equal, directions
+    equal, found rows, rows on another face, largest distance by which
+    got's face is farther than want's, largest by which it is nearer)."""
+    f1, d1, t1, w1 = (np.asarray(a.cpu() if hasattr(a, "cpu") else a)
+                      for a in got)
+    f2, d2, t2, w2 = (np.asarray(a.cpu() if hasattr(a, "cpu") else a)
+                      for a in want)
+    m = f1.astype(bool) & rows
+    q = pos[con.cq_vert.cpu().numpy()[m]]
+
+    def dist(t, w):
+        return np.linalg.norm(q - np.einsum("ck,cki->ci", w[m], pos[t[m]]),
+                              axis=1)
+
+    dd = dist(t1, w1) - dist(t2, w2) if m.any() else np.zeros(1)
+    return (np.array_equal(f1[rows], f2[rows]),
+            np.array_equal(d1[rows], d2[rows]), int(m.sum()),
+            int((~(t1[m] == t2[m]).all(axis=1)).sum()),
+            max(0.0, float(dd.max())), max(0.0, float(-dd.min())))
+
+
+def bench40k_phase(device):
+    """[bench-40k]: the bench at cloth_N=140 (39,200 cloth triangles a
+    sheet, above hash_min_faces: the spatial hash) in f32, the pad pressing
+    PRESS_Z a step for BENCH40K_T steps, then the adjoint; both kernels on
+    its store; the hash against the exhaustive sweep on the first and last
+    positions. Returns (kernel results, launches of the forward+backward)."""
+    from thinshelllab_torch.engine import gridsolve
+    from thinshelllab_torch.ops import dia_spmv as K
+    from thinshelllab_torch.scenes import bench_scene
+
+    t0 = time.perf_counter()
+    sc = bench_scene.make(cloth_N=BENCH40K_N, table_n=12,
+                          dtype=torch.float32, hess_refresh=8, fwd_tol=1e-3,
+                          max_newton_iter=8)
+    s, con = sc.spec, sc.spec.contact
+    hashed = [(pd, hd) for pd, hd in zip(con.pair_desc, con.hash_desc)
+              if hd is not None and pd[3] >= con.hash_min_faces]
+    log(f"[bench-40k] cloth_N={BENCH40K_N} built on the host in "
+        f"{time.perf_counter() - t0:.2f} s: NV {s.NV}, faces "
+        f"{s.faces.shape[0]}, NVp {s.dia.NVp}, {len(s.dia.offsets)} offsets "
+        f"(max |offset| {max(abs(o) for o in s.dia.offsets)}), contact "
+        f"capacity {con.capacity}; pairs on the hash (queries, source "
+        f"faces, grid, cap): "
+        f"{[(pd[1], pd[3], hd[:3], hd[3]) for pd, hd in hashed]}")
+    if len(hashed) != 2:
+        raise AssertionError("the 40k bench should take the hash on its two "
+                             "cloth-source pairs")
+    kres = {str(dt)[6:]: plan_kernel_check("[bench-40k] kernels", sc, device,
+                                           dt)
+            for dt in (torch.float32, torch.float64)}
+    spec, s0, params = sc.to(device, torch.float32)
+    K.reset_launches()
+    buf, stats, secs = rollout(spec, s0, params, device, BENCH40K_T, PRESS_Z)
+    fwd = dict(K.LAUNCHES)
+    pt = PhaseTimer()
+    pt.wrap(gridsolve.GridPreconditioner, "__init__", "BCR factor")
+    try:
+        K.reset_launches()
+        res, secs_b = backward(sc, spec, params, buf)
+        bwd = dict(K.LAUNCHES)
+    finally:
+        pt.restore()
+    pos, gg = buf["pos"], res.gripper_grad
+    disp = float((pos[-1] - pos[0]).abs().max())
+    bcr_ms = pt.ms.get("BCR factor", float("nan"))
+    n_bcr = pt.calls.get("BCR factor", 0)
+    log(f"[bench-40k] f32 T={BENCH40K_T}, pad {PRESS_Z * 1e3:.1f} mm a step: "
+        f"forward {secs:.3f} s (Newton {stats['newton_iters']}, CG "
+        f"{stats['cg_iters']}, line-search trials {stats['ls_trials']}), "
+        f"backward {secs_b:.3f} s with a sync around each BCR factor "
+        f"({bcr_ms / max(n_bcr, 1):.1f} ms a backward step, {n_bcr} "
+        f"factors); launches forward {fwd}, backward {bwd}; max displacement"
+        f" {disp:.3e} m, max |gripper_grad| {float(gg.abs().max()):.4e}; "
+        f"{contact_gap(sc, buf)}")
+    if not (bool(torch.isfinite(pos).all()) and disp < SCENE_DISP_MAX
+            and bool(torch.isfinite(gg).all())):
+        raise AssertionError(f"bench-40k: displacement {disp}, gradient "
+                             f"finite {bool(torch.isfinite(gg).all())}")
+    if min(fwd.values()) <= 0 or bwd["dia_spmv"] <= 0:
+        raise AssertionError(f"bench-40k launches: forward {fwd}, backward "
+                             f"{bwd}")
+    hash_checks(spec, pos, device, z_dtype=s0.proj_flag.dtype, sc=sc)
+    return kres, {k: fwd[k] + bwd[k] for k in fwd}
+
+
+def hash_checks(spec, pos, device, z_dtype, sc):
+    """The hash projection of the 40k bench against the exhaustive sweep
+    (top_k = max_src_faces) on the first and last positions of the run,
+    and against the JAX package's hash on the initial positions in f64
+    (GOLDEN_HASH40K). The JAX package's own hash keeps the 2K nearest
+    faces by centroid L-inf distance, and at this resolution more faces
+    than that tie at the pad's height above the cloth: it picks a farther
+    face than the exhaustive sweep on about half the found rows (ROADMAP
+    §3). So against the exhaustive sweep the found sets and directions
+    must be equal and the hash never nearer (beyond the 1e-5 window);
+    against the JAX hash, the criterion of the JAX package's hash test
+    less its count (which differs between any two roundings)."""
+    from thinshelllab_torch.ops import collision
+
+    con = spec.contact
+    rows = hash_rows(con)
+    oracle = spec.replace(contact=con.replace(
+        hash_desc=(None,) * len(con.hash_desc), top_k=con.max_src_faces))
+    z = torch.zeros((con.capacity,), dtype=z_dtype, device=device)
+    for label, p in (("initial", pos[0]), ("final", pos[-1])):
+        vn = collision.vertex_normals(p, spec.faces, spec.NV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = collision.projection_query(spec, p, vn, z, z)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = collision.projection_query(oracle, p, vn, z, z)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fe, de, n, n_mis, farther, nearer = hash_compare(
+            con, p.cpu().double().numpy(), got, want, rows)
+        log(f"[bench-40k] hash vs exhaustive sweep, {label} positions: "
+            f"found sets equal {fe}, directions equal {de}; {n} found rows "
+            f"on the hash pairs, {n_mis} on another face, the hash's face "
+            f"farther by up to {farther:.3e} m and nearer by up to "
+            f"{nearer:.3e} m (tol {HASH_DIST_ATOL:.2e}); projection "
+            f"{t1 - t0:.3f} s with the hash, {t2 - t1:.3f} s exhaustive")
+        if not (fe and de and n > 0 and nearer <= HASH_DIST_ATOL):
+            raise AssertionError(f"bench-40k {label}: the hash disagrees "
+                                 "with the exhaustive sweep")
+    g = np.load(GOLDEN_HASH40K)
+    spec64, s064, _ = sc.to(device, torch.float64)
+    p = s064.pos
+    vn = collision.vertex_normals(p, spec64.faces, spec64.NV)
+    got = collision.projection_query(spec64, p, vn, z, z)
+    fe, de, n, n_mis, farther, nearer = hash_compare(
+        con, p.cpu().numpy(), got, (g["flag"], g["dir"], g["tri"], g["w"]),
+        rows)
+    log(f"[bench-40k] hash vs the JAX package's hash, f64 initial "
+        f"positions: found sets equal {fe}, directions equal {de}; {n} "
+        f"found rows, {n_mis} on another face, distances within "
+        f"{max(farther, nearer):.3e} m (tol {HASH_DIST_ATOL:.2e})")
+    if not (fe and de and max(farther, nearer) <= HASH_DIST_ATOL):
+        raise AssertionError("bench-40k: the hash disagrees with the JAX "
+                             "package's")
+
+
+@contextlib.contextmanager
+def raw_eigh_record():
+    """Within the block, every batch that ops/spd._eigh decomposes on the
+    card is first handed to cuSOLVER's batched eigh as it stands, all-zero
+    blocks included, and the outcome counted: batches, blocks, all-zero
+    blocks, refused batches, and blocks with a non-finite result (all-zero
+    or not). _eigh then runs as always (it keeps all-zero blocks away from
+    cuSOLVER and raises on any other failure)."""
+    from thinshelllab_torch.ops import spd
+
+    rec = dict(batches=0, blocks=0, zero=0, refused=0, bad=0, bad_zero=0)
+    inner = spd._eigh
+
+    def recording(Hs):
+        H = Hs.double()
+        if H.is_cuda:
+            k = H.shape[-1]
+            zero = ~H.reshape(-1, k * k).any(dim=-1)
+            rec["batches"] += 1
+            rec["blocks"] += zero.numel()
+            rec["zero"] += int(zero.sum())
+            try:
+                w, v = torch.linalg.eigh(H)
+                bad = ~(torch.isfinite(w).all(dim=-1)
+                        & torch.isfinite(v).all(dim=(-1, -2))).reshape(-1)
+                rec["bad"] += int(bad.sum())
+                rec["bad_zero"] += int((bad & zero).sum())
+            except torch.linalg.LinAlgError:
+                rec["refused"] += 1
+        return inner(Hs)
+
+    spd._eigh = recording
+    try:
+        yield rec
+    finally:
+        spd._eigh = inner
+
+
+def self_contact_phase(device, when):
+    """[self-contact]: the hairpin's projection, contact-set gradient and
+    one implicit step on the card, against the CPU and the JAX run
+    (GOLDEN_HAIRPIN). Faces and weights are compared on the found slots,
+    the ones the contact set consumes. Run early in the process and again
+    at its end (`when`), where a float64 hairpin batch once failed in
+    cuSOLVER's eigh; cuSOLVER's own result on each batch is counted
+    (raw_eigh_record)."""
+    from thinshelllab_torch.scenes import hairpin
+
+    spec, s0, params = hairpin.make(torch.float64)
+    with raw_eigh_record() as rec:
+        card = {k: v.cpu().numpy() for k, v in hairpin.probe(
+            spec.to(device), s0.to(device), params.to(device)).items()}
+    cpu = {k: v.numpy() for k, v in hairpin.probe(
+        spec.to("cpu"), s0.to("cpu"), params.to("cpu")).items()}
+    jx = dict(np.load(GOLDEN_HAIRPIN))
+    found = card["flag"].astype(bool)
+    out = []
+    for ref, tol in ((cpu, HAIRPIN_CPU_ATOL), (jx, HAIRPIN_JAX_ATOL)):
+        same = all(np.array_equal(card[k], ref[k])
+                   for k in ("flag", "dir", "active"))
+        same &= np.array_equal(card["tri"][found], ref["tri"][found])
+        e_w = float(np.abs(card["w"][found] - ref["w"][found]).max())
+        e_x = float(np.abs(card["pos1"] - ref["pos1"]).max())
+        e_g = float(np.abs(card["grad"] - ref["grad"]).max()
+                    / np.abs(ref["grad"]).max())
+        out.append((same, e_w, e_x, e_g, tol))
+    log(f"[self-contact] {when}, {time.perf_counter() - T_START:.0f} s into "
+        f"the process: cuSOLVER's batched eigh on the hairpin's "
+        f"{rec['batches']} batches as they stand ({rec['blocks']} blocks, "
+        f"{rec['zero']} all-zero): {rec['refused']} batches refused, "
+        f"{rec['bad']} blocks non-finite ({rec['bad_zero']} of them "
+        f"all-zero)")
+    log(f"[self-contact] hairpin {hairpin.N}x{hairpin.M} f64 on the card: "
+        f"{int(found.sum())} self-projections found, "
+        f"{int(card['active'].sum())} active; " + "; ".join(
+            f"against {who}: flags, directions, active and the found faces "
+            f"equal {same}, weights {e_w:.3e}, one step {e_x:.3e} m (tol "
+            f"{tol:.0e}), energy gradient rel err {e_g:.3e}"
+            for who, (same, e_w, e_x, e_g, tol) in zip(("the CPU", "JAX"),
+                                                      out)))
+    if not (found.sum() > 0 and all(
+            same and max(e_w, e_x) <= tol and e_g <= 1e-9
+            for same, e_w, e_x, e_g, tol in out)):
+        raise AssertionError("the hairpin on the card disagrees")
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: CUDA is not available; the port's "
                          "smoke run needs one CUDA card")
-    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1281,6 +1994,7 @@ def main():
         f"{s.cloth.hinge_verts.shape[0]}")
 
     kres = timed("kernel checks", kernel_checks, sc, device)
+    timed("self-contact", self_contact_phase, device, "early")
     timed("golden", golden_check, device)
     timed("golden-adjoint", golden_adjoint_check, device)
     t_main = time.perf_counter()
@@ -1367,16 +2081,41 @@ def main():
     timed("scenes-trajopt", scenes_trajopt_phase, device)
     timed("dp", dp_phase, device)
 
+    cg_k = timed("cg-kernels", cg_kernel_checks, device)
+    launches_cg = timed("cg-scenes", cg_scenes_phase, device)
+    timed("cg-trajopt", cg_trajopt_phase, device)
+    k40, launches_40k = timed("bench-40k", bench40k_phase, device)
+    timed("self-contact-late", self_contact_phase, device, "late")
+    for name in launches_cg:
+        if launches_cg[name] <= 0 or launches_40k[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the cg "
+                                 f"scenes ({launches_cg[name]}) or the 40k "
+                                 f"bench ({launches_40k[name]})")
+
     src = "thinshelllab_torch/csrc/dia_spmv.cu"
     replaces = {"dia_spmv": "thinshelllab_tpu/ops/dia_spmv.py:93",
                 "dia_precond": "thinshelllab_tpu/ops/dia_spmv.py:237"}
-    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    log(f"[done] {time.perf_counter() - T_START:.1f} s in all")
+
+    def plans(name):
+        """Device ms against the bound on each plan this run launched on."""
+        out = [dict(plan=f"{scene} {dt}", **{
+            k: r[name][k] for k in ("ms", "bound_ms", "max_abs_err")},
+            **r["geometry"])
+            for scene, by_dt in cg_k.items() for dt, r in by_dt.items()]
+        return out + [dict(plan=f"bench-40k {dt}", **{
+            k: r[name][k] for k in ("ms", "bound_ms", "max_abs_err")},
+            **r["geometry"]) for dt, r in k40.items()]
+
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=replaces[name],
              launches=launches[name] + launches_bwd[name],
              launches_forward=launches[name],
              launches_backward=launches_bwd[name],
-             launches_full_newton=launches_fn[name], **kres[name])
+             launches_full_newton=launches_fn[name],
+             launches_cg_scenes=launches_cg[name],
+             launches_bench_40k=launches_40k[name],
+             plans=plans(name), **kres[name])
         for name in ("dia_spmv", "dia_precond")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -372,15 +372,30 @@ def test_dense_adjoint_solve_matches_jax(operator, ref):
     assert _rel(x, ref["op"]["x"]) < 1e-6  # GMRES to adj_tol 1e-10
 
 
-def test_unported_branches_raise(operator):
-    """The MINRES adjoint (scenes without a cloth grid plan) and
-    backward_chunked are not ported."""
+def test_unported_branches_raise(operator, ref, port, monkeypatch):
+    """The branches that raised before they were ported: solve_adjoint on
+    the spec without a cloth grid plan takes MINRES (preconditioned by the
+    smoothing polynomial of the |H| DIA operator), against the JAX
+    package's on the same system with its grid plan taken away (the same
+    iterations within 2, the solution within 1e-10); and
+    backward_chunked is bit-equal to backward on the carried tape."""
     spec, groups, _st, (_z, _r, F) = operator
     no_grid = spec.replace(dev=dataclasses.replace(spec.dev, grid_plan=()))
-    with pytest.raises(NotImplementedError, match="MINRES"):
-        solver.solve_adjoint(no_grid, groups, F)
-    with pytest.raises(NotImplementedError, match="backward_chunked"):
-        adjoint.backward_chunked(spec, None, {}, None, None, 2)
+    x, it = solver.solve_adjoint(no_grid, groups, F, return_iters=True)
+    jspec = jbench.make(dtype=jnp.float64, **CFG).spec
+    jgroups = {"idx": jnp.asarray(groups["idx"].numpy().astype(np.int32)),
+               "H": jnp.asarray(groups["H"].numpy())}
+    monkeypatch.setattr(jgrid, "build_grid_plan", lambda spec: [])
+    jx, jit_ = jax.jit(lambda g, b: jsolver.solve_adjoint(
+        jspec, g, b, return_iters=True))(jgroups, jnp.asarray(F.numpy()))
+    assert abs(it - int(jit_)) <= 2 and 0 < it < spec.cg_max_iter
+    assert _rel(x, jx) < 1e-10
+    assert _rel(x, ref["op"]["xd"]) < 1e-6  # the dense solve
+    _sc, spec, params, buf, seeds, _s0 = port
+    want = adjoint.backward(spec, params, buf, *seeds)
+    got = adjoint.backward_chunked(spec, params, buf, *seeds, 2)
+    assert torch.equal(got.gripper_grad, want.gripper_grad)
+    assert torch.equal(got.pos_grad0, want.pos_grad0)
 
 
 def _write_golden():

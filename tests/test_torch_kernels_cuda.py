@@ -379,3 +379,133 @@ def test_scene_step_matches_cpu(cuda, name):
     err = float((out["cuda"].cpu() - out["cpu"]).abs().max())
     print(f"{name}: max |dpos| card vs CPU {err:.3e} m")
     assert err <= 1e-9, err
+
+
+# the DIA plans the task scenes build under solver="cg" (21 to 351 offsets
+# over 1024 or 2048 rows) and the 40k-triangle bench's (71 over 20,480):
+# (n_off, NVp) of each, by the scene that builds it
+CG_PLANS = {"bouncing": (21, 1024), "forming": (63, 1024),
+            "sliding": (69, 2048), "pick": (213, 2048),
+            "lifting": (285, 2048), "balancing": (351, 2048),
+            "bench140": (71, 20480)}
+
+
+def _cg_plan_offsets(name):
+    """The scene's own offsets: their largest reach 32 to 282 rows."""
+    from thinshelllab_torch.scenes import registry
+
+    if name == "bench140":
+        sc = bench_scene.make(cloth_N=140, table_n=12, dtype=torch.float32)
+    else:
+        sc = registry.make_scene(name, solver="cg")
+    return sc.spec.dia.offsets, sc.spec.dia.NVp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", list(CG_PLANS))
+def test_kernels_on_cg_scene_plans(cuda, dtype, name):
+    """Both kernels against their plain versions on random stores of each
+    cg plan's shape and offsets (the preconditioner's window spans
+    rows + 2 max|offset|; 351 f64 lanes leave most of the store in global
+    memory; 20,480 rows spread over every SM)."""
+    offs, NVp = _cg_plan_offsets(name)
+    assert (len(offs), NVp) == CG_PLANS[name]
+    offs, dia, dia_pre, dinv, unf2 = _random_operator(cuda, dtype, offs, NVp)
+    g = torch.Generator().manual_seed(5)
+    x2 = torch.randn(unf2.shape, generator=g, dtype=torch.float64).to(
+        cuda, dtype) * unf2
+    plan = K.device_precond_plan(cuda.index, NVp, tuple(offs), dtype)
+    K.reset_launches()
+    y = K.dia_spmv(dia, x2, offs)
+    z = K.dia_precond(dia_pre, x2, unf2, dinv, offs, 0.8, 3)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"dia_spmv": 1, "dia_precond": 1}
+    for got, ref in ((y, K.dia_spmv_plain(dia, x2, offs)),
+                     (z, K.dia_precond_plain(dia_pre, x2, unf2, dinv, offs,
+                                             0.8, 3))):
+        err = float((got - ref).abs().max() / ref.abs().max())
+        print(f"{name} {dtype}: {plan}, err {err:.3e}")
+        assert err <= RTOL[dtype], (err, plan)
+
+
+@pytest.mark.cuda
+def test_pull_path_matches_cpu(cuda):
+    """folding under solver="cg" (no DIA plan): hvp_pull, the block
+    diagonal, pull CG and MINRES on the card against the CPU, f64, on the
+    CPU's element blocks at the established-contact state of
+    tests/test_assembly.py's MINRES test (table_n=5, the pad pressed 0.6
+    mm a step for 3 dense steps), where MINRES converges below its cap."""
+    spec, s0, params = folding.make(table_n=5, max_newton_iter=20).to("cpu")
+    sc = folding.make(table_n=5, max_newton_iter=20, solver="cg")
+    dpos = torch.zeros((3, sc.n_part, 3), dtype=torch.float64)
+    dpos[:, :, 2] = -6e-4
+    st, _ = stepper.rollout(spec, params, s0, (
+        dpos, torch.zeros_like(dpos),
+        torch.zeros((3, sc.n_part), dtype=torch.float64)))
+    contact, _, _ = stepper.build_contacts(spec, params, st.pos, st.pos,
+                                           st.proj_flag, st.proj_dir)
+    groups = {s: elements.all_groups(spec, params, st.pos, st.ref_angle,
+                                     contact, with_hess=True, spd=s)
+              for s in (True, False)}
+    g = torch.Generator().manual_seed(3)
+    F = torch.randn(st.pos.shape, generator=g, dtype=torch.float64)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        spec_d, _, _ = sc.to(dev, torch.float64)
+        assert spec_d.dia is None and spec_d.hvp_slots is not None
+        gr = {s: {k: v.to(dev) for k, v in grp.items()}
+              for s, grp in groups.items()}
+        Fd = F.to(dev) * spec_d.dev.unf
+        nbr = elements.gather_neighbor_blocks(spec_d, gr[True],
+                                              torch.float64)
+        z, it = solver.solve_adjoint(spec_d, gr[False], Fd,
+                                     return_iters=True)
+        assert 0 < it < spec_d.cg_max_iter
+        out[dev.type] = dict(
+            hvp=elements.hvp_pull(spec_d, nbr, gr[True], Fd),
+            D=elements.diag_blocks(spec_d, gr[True]),
+            cg=solver.solve_cg(spec_d, gr[True], Fd), minres=z)
+    for key, want in out["cpu"].items():
+        err = float((out["cuda"][key].cpu() - want).abs().max()
+                    / want.abs().max())
+        print(f"{key}: max rel err {err:.3e}")
+        assert err <= 1e-9, (key, err)
+
+
+@pytest.mark.cuda
+def test_hash_broadphase_matches_cpu(cuda):
+    """The spatial-hash projection on the card against the CPU, f64, on
+    bench cloth_N=32 forced onto the hash (hash_min_faces=0), at the
+    settled state of tests/test_collision.py, by that test's criterion:
+    flags and directions equal, projection distances within 1.01e-5 m (a
+    tie inside the near-window may pick another face), faces equal on all
+    but max(5, 2%) of the found rows; and the weights of the rows on one
+    face within 1e-12."""
+    from thinshelllab_torch.ops import collision
+
+    sc = bench_scene.make(cloth_N=32, dtype=torch.float64, solver="cg")
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        spec, s0, _ = sc.to(dev, torch.float64)
+        spec = spec.replace(contact=spec.contact.replace(hash_min_faces=0))
+        p = s0.pos.clone()
+        p[:, 2] -= 0.4 * (p[:, 2] - p[:, 2].min())
+        vn = collision.vertex_normals(p, spec.faces, spec.NV)
+        z = torch.zeros_like(s0.proj_flag)
+        out[dev.type] = [t.cpu() for t in collision.projection_query(
+            spec, p, vn, z, z)] + [p.cpu()]
+    (f1, d1, t1, w1, p), (f2, d2, t2, w2, _) = out["cuda"], out["cpu"]
+    assert torch.equal(f1, f2) and torch.equal(d1, d2) and int(f1.sum()) > 0
+    m = f1.bool()
+    same = (t1 == t2).all(dim=1) & m
+    print(f"faces differ on {int(m.sum() - same.sum())} of {int(m.sum())}")
+    assert int(m.sum() - same.sum()) <= max(5, 0.02 * int(m.sum()))
+    assert float((w1[same] - w2[same]).abs().max()) <= 1e-12
+    q = p[spec.contact.cq_vert.cpu()]
+
+    def dist(t, w):
+        return torch.linalg.vector_norm(
+            q - torch.einsum("ck,cki->ci", w, p[t]), dim=1)[m]
+
+    assert float((dist(t1, w1) - dist(t2, w2)).abs().max()) <= 1.01e-5

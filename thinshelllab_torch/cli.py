@@ -7,7 +7,10 @@ subcommands:
 
 Both run on the CUDA card (`--platform gpu`, the default; no card raises)
 with the JAX CLI's accelerator defaults: solver 'auto' (dense below 6000
-DOF, CG on the DIA plan above) and float32 unless --f64. `--platform cpu`
+DOF, CG above) and float32 unless --f64. `--solver cg` takes the iterative
+path on any scene: CG on the DIA plan with the CUDA kernels and the
+GMRES adjoint where the cloth is wide enough for a plan, CG on the pull
+operator and the MINRES adjoint where it is not (folding). `--platform cpu`
 takes the JAX CLI's CPU defaults: the dense solver and the scene's own
 dtype (float64) unless --f32. The other subcommands (cmaes, rl, render,
 bench) are not ported yet.
@@ -35,8 +38,10 @@ def _add_common(p):
     p.add_argument("--save_dir", type=str, default=None)
     p.add_argument("--solver", type=str, default=None,
                    help="dense|cg|auto (default: auto on the card -- dense "
-                        "below 6000 DOF, CG on the DIA plan above; dense on "
-                        "the CPU)")
+                        "below 6000 DOF, cg above; dense on the CPU). cg: "
+                        "CG on the DIA plan (the CUDA kernels) and the "
+                        "GMRES adjoint, or on a cloth too narrow for a plan "
+                        "CG on the pull operator and the MINRES adjoint")
     p.add_argument("--f32", action="store_true")
     p.add_argument("--f64", action="store_true")
     p.add_argument("--max_newton_iter", type=int, default=None)
@@ -193,8 +198,9 @@ def build_parser():
                    help="render every n iterations (not ported yet)")
     p.add_argument("--render_option", type=str, default="Preview")
     p.add_argument("--fwd_chunk", type=int, default=0,
-                   help="rollout chunk size of the JAX package (not ported: "
-                        "0 only)")
+                   help="the JAX package's rollout segments of this many "
+                        "steps (0: none); the port's rollout is one host "
+                        "loop either way")
     p.set_defaults(fn=cmd_trajopt)
 
     p = sub.add_parser("dp")

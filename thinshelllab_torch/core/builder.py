@@ -3,8 +3,8 @@ SimState and Params.
 
 Counterpart of `thinshelllab_tpu/core/builder.py`, for the bodies and
 relations the task scenes use: cloths, cube and ball elastics, tactile
-pads, directed contact pairs, frozen DOFs and a single/paired gripper
-(self-contact pairs are not ported). Every leaf
+pads, directed and self-contact pairs, frozen DOFs and a single/paired
+gripper. Every leaf
 it makes is numpy and equals the JAX builder's (tests/test_torch_builder.py);
 `SceneSpec.to(device, dtype)` moves the result to a device.
 """
@@ -198,6 +198,13 @@ class SceneBuilder:
         """Project tgt_body's vertices onto src_body's faces with friction
         params.mu_pairs[mu_slot]."""
         self.pairs.append((src_body, tgt_body, mu_slot, False))
+
+    def add_self_contact_pair(self, body: int, mu_slot: int):
+        """Self-contact: project the body's vertices onto its own faces,
+        skipping the faces incident to the query vertex and accepting only
+        face-interior projections (reference
+        engine/geometry_self.projection_query)."""
+        self.pairs.append((body, body, mu_slot, True))
 
     def new_mu_slot(self, mu: float) -> int:
         self.mu_init.append(mu)
@@ -455,10 +462,12 @@ class SceneBuilder:
         )
 
     def _hash_desc_for(self, sb, pos0):
-        """Static spatial-hash descriptor of a source body's faces (see the
-        JAX builder), or None below 2048 faces. The port's collision sweep
-        never takes the hash (bench faces < ContactSpec.hash_min_faces); the
-        descriptor is built so both packages' specs agree."""
+        """Static spatial-hash descriptor (Gx, Gy, Gz, cap) of a source
+        body's faces, or None below 2048 faces: the rest extent in cells of
+        2 grid_h plus 4 margin cells (run-time coordinates clamp into the
+        grid), and a per-cell cap of 4x the rest occupancy rounded up to 8,
+        with no upper clamp (an overflowing cell would drop candidates).
+        The collision sweep takes the hash from hash_min_faces faces on."""
         if sb.n_faces < 2048:
             return None
         s = 2.0 * self.cfg["grid_h"]

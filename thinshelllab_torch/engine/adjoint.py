@@ -10,7 +10,8 @@ Per step t, from T-1 down to 1:
   3. the plastic a2ax chain: dL/dref_t flows to dL/dref_{t-1} and, scaled
      by the yield gate (1 inside yield, 0.1 otherwise), into dL/dx_t
   4. solve H(x_t) z = dL/dx_t with the true (unprojected) Hessian by
-     grid-preconditioned GMRES
+     grid-preconditioned GMRES (MINRES on a scene without a cloth grid
+     plan, the LU solve on a dense scene)
   5. frozen-column products -> the effector's 6-DoF gradients
   6. x_hat_grad = M z / dt^2: dL/dx_{t-1} += (1 + damping) x_hat_grad,
      dL/dx_{t-2} -= damping x_hat_grad (unfrozen DOFs)
@@ -255,12 +256,17 @@ def backward(
         f_loss_ratio, warm_start, debug_iters, cd, sd, compensated)
 
 
-def backward_chunked(*args, **kwargs):
-    """Not ported: a crash workaround of the JAX package for its TPU
-    worker's long single-program scans; the port's sweep is a host loop."""
-    raise NotImplementedError(
-        "backward_chunked (host-stitched backward segments) is not ported; "
-        "call backward")
+def backward_chunked(spec: SceneSpec, params: Params, buffers, seed_pos_grad,
+                     seed_ar_grad, chunk: int, **kwargs) -> AdjointResult:
+    """backward() under the JAX package's chunked signature (`chunk`
+    followed by backward()'s keywords). The JAX package runs its sweep in
+    host-stitched segments of `chunk` steps, a workaround for its TPU
+    worker's long scans; the port's sweep is a host loop already, so this
+    is backward() itself, bit-equal to it."""
+    if chunk < 1:
+        raise ValueError(f"chunk={chunk} must be >= 1")
+    return backward(spec, params, buffers, seed_pos_grad, seed_ar_grad,
+                    **kwargs)
 
 
 def _backward_body(spec, params, buffers, seed_pos_grad, seed_ar_grad,

@@ -15,8 +15,10 @@ The operator is the hybrid DIA layout of the JAX package: a static
 pull slots, and the dynamic contact part (frozen-source diagonal +
 selection-matmul pairs). The forward CG state lives in the transposed
 (3, NVp) layout (`*_T`); the adjoint GMRES applies the same operator to
-(NV, 3) vectors (`hvp_dia`). A scene without a DIA plan (the dense solve of
-small scenes) assembles the whole matrix instead (`dense_hessian`).
+(NV, 3) vectors (`hvp_dia`). A CG scene without a DIA plan (a cloth too
+narrow for one) applies the pull operator (`hvp_pull`: the static blocks
+gathered per row, the contact blocks scattered); the dense solve of small
+scenes assembles the whole matrix (`dense_hessian`).
 """
 from __future__ import annotations
 
@@ -55,7 +57,8 @@ def device_consts(host: SceneSpec, spec: SceneSpec) -> DeviceConsts:
         unf_p=torch.cat([unf, unf.new_zeros((1, 3))]),
         canon=torch.as_tensor(_CANON_STENCIL, dtype=dt, device=dev),
         hinge_m=spec.cloth.hinge_mask.to(dt),
-        contact_split=contact_static_split(host),
+        # the card takes the gather/scatter path for every non-diagonal pair
+        contact_split=contact_static_split(host, mm=dev.type != "cuda"),
     )
     plan = spec.dia
     if plan is not None:
@@ -676,6 +679,36 @@ def dense_hessian(spec, fused):
     return H
 
 
+def hvp(spec, fused, x):
+    """Matrix-free H @ x on an (NV, 3) vector with the frozen masking of
+    dense_hessian: every element block gathers, multiplies and scatters
+    (the operator of a CG scene without hvp slots)."""
+    unf = spec.dev.unf_p.to(x.dtype)
+    y = (spec.mass / spec.dt**2).to(x.dtype)[:, None] * x
+    xp = torch.cat([x, x.new_zeros((1, 3))]) * unf
+    idx = fused["idx"]
+    contrib = torch.einsum("eabij,ebj->eai", fused["H"], xp[idx]) * unf[idx]
+    yp = torch.zeros_like(xp)
+    yp.index_add_(0, idx.reshape(-1), contrib.reshape(-1, 3))
+    return y + yp[: spec.NV]
+
+
+def diag_blocks(spec, fused):
+    """(NV, 3, 3) block diagonal of the assembled Hessian (block-Jacobi),
+    in the element blocks' dtype, not the spec mass's: the adjoint may
+    solve in another precision than the spec's."""
+    Hb = fused["H"]
+    unf = spec.dev.unf_p.to(Hb.dtype)
+    idx = fused["idx"]
+    D = Hb.new_zeros((spec.NV + 1, 3, 3))
+    for a in range(4):
+        m = unf[idx[:, a]]
+        D.index_add_(0, idx[:, a], Hb[:, a, a] * m[:, :, None] * m[:, None, :])
+    eye = torch.eye(3, dtype=Hb.dtype, device=Hb.device)
+    md = spec.mass.to(Hb.dtype) / spec.dt**2
+    return D[: spec.NV] + md[:, None, None] * eye
+
+
 def gather_neighbor_blocks(spec, fused, x_dtype):
     """(R, D, 3, 3) leftover static blocks in pull layout, frozen-masked.
     Done once per operator build."""
@@ -803,10 +836,12 @@ def blocks_to_t33(spec, B, dtype):
 
 
 def dia_apply(spec, dia, xm2):
-    """The DIA SpMV of the (3, NVp) store on a contiguous (3, NVp) vector:
-    the CUDA kernel or its plain version, see use_spmv_kernel."""
+    """The DIA SpMV of the (3, NVp) store on a (3, NVp) vector: the CUDA
+    kernel (on a contiguous copy where xm2 has other strides, as an einsum
+    may leave it) or its plain version, see use_spmv_kernel."""
     if use_spmv_kernel(spec, xm2):
-        return _spmv.dia_spmv(dia, xm2, spec.dia.offsets, spec.dev.offsets_t)
+        return _spmv.dia_spmv(dia, xm2.contiguous(), spec.dia.offsets,
+                              spec.dev.offsets_t)
     return _spmv.dia_spmv_plain(dia, xm2, spec.dia.offsets)
 
 
@@ -829,6 +864,41 @@ def _pull_apply(spec, nbr, xm):
     """Leftover pull product: per-row (R, D) slot contraction of the
     (NV+1, 3) vector xm (ghost row last)."""
     return torch.einsum("rdij,rdj->ri", nbr, xm[spec.hvp_slots.slot_col])
+
+
+def hvp_pull(spec, nbr, fused, x):
+    """H @ x on a scene without a DIA plan (the pull path): the static part
+    as a gather + einsum over the precomputed neighbour blocks, only the
+    dynamic contact part as a scatter."""
+    sl = spec.hvp_slots
+    unf = spec.dev.unf_p.to(x.dtype)
+    xp = torch.cat([x, x.new_zeros((1, 3))])
+    y = torch.zeros_like(x).index_add(0, sl.row_ids,
+                                      _pull_apply(spec, nbr, xp))
+    y = y + (spec.mass / spec.dt**2).to(x.dtype)[:, None] * x
+    ns = static_block_count(spec)
+    idx = fused["idx"][ns:]
+    xpm = xp * unf
+    contrib = torch.einsum("eabij,ebj->eai", fused["H"][ns:],
+                           xpm[idx]) * unf[idx]
+    yp = torch.zeros_like(xp)
+    yp.index_add_(0, idx.reshape(-1), contrib.reshape(-1, 3))
+    return y + yp[: spec.NV]
+
+
+def _padded_static_idx(spec):
+    """(ns, 4) numpy: the fused-order static element vertex ids, 3-vertex
+    elements padded with the ghost vertex NV (as fuse_groups pads them).
+    Takes the builder's (numpy) spec."""
+    f2v = np.asarray(spec.cloth.f2v)
+    parts = [np.concatenate([f2v, np.full((f2v.shape[0], 1), spec.NV,
+                                          f2v.dtype)], axis=1),
+             np.asarray(spec.cloth.hinge_verts)]
+    for soup in (spec.neo, spec.tact):
+        t = np.asarray(soup.tets)
+        if t.shape[0]:
+            parts.append(t)
+    return np.concatenate(parts, axis=0)
 
 
 def hvp_dia_static(spec, dia, nbr_left, x):

@@ -330,12 +330,17 @@ def build_dia_plan(spec, min_count=64):
     return plan, ~in_dia
 
 
-def contact_static_split(spec):
+def contact_static_split(spec, mm=True):
     """Static partition of the merged contact group's slots into
     frozen-source diagonal pairs, selection-matmul ('mm') pairs and general
     gather/scatter pairs. Returns (diag_ranges, mm_ranges, gen_ranges) with
     entries (cq_start, count, v_lo) / (cq_start, count, v_lo, f_vlo, f_vn) /
-    (cq_start, count), or None when no pair qualifies for diag or mm."""
+    (cq_start, count), or None when no pair qualifies for diag or mm.
+
+    mm=False classifies no 'mm' pair: those stay on the gather/scatter
+    path. The one-hot selection matmuls spare a TPU its slow indexing; on a
+    card each pair costs ~60 dispatched operators a matvec, where the
+    gather/scatter of all pairs together costs a handful."""
     con = spec.contact
     if not con.pair_desc:
         return None
@@ -354,7 +359,7 @@ def contact_static_split(spec):
         if frozen_q and contig:
             diag_ranges.append((cq_start, count, v_lo))
             continue
-        if (contig and not is_self and con.mm_budget > 0
+        if (mm and contig and not is_self and con.mm_budget > 0
                 and pi < len(con.src_vrange)):
             f_vlo, f_vn = con.src_vrange[pi]
             if f_vn > 0 and count * 3 * f_vn <= con.mm_budget:

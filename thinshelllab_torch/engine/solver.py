@@ -9,18 +9,22 @@ solve (counterpart of `thinshelllab_tpu/engine/solver.py`).
     block-Jacobi smoothing polynomial: the fused `dia_precond` CUDA kernels
     when the SpMV route is the kernel (`elements.use_spmv_kernel`), the
     per-sweep plain polynomial of the cheap operator otherwise.
+  * `solve_cg_prepared` on a scene without a DIA plan (a cloth too narrow
+    for the plan, e.g. folding): block-Jacobi CG in the (NV, 3) layout on
+    the pull operator (`elements.hvp_pull`), or on the plain scatter
+    operator (`elements.hvp`) without hvp slots.
   * `newton_solve`: full Newton (`hess_refresh=1` or the dense solver:
     Hessian, residual and solve every iteration, an energy-only
     backtracking line search) or the macro/micro modified Newton of the
     JAX package (operator rebuilt every `hess_refresh` iterations,
     residual fresh every iteration, the line search on the fused
     energy+force evaluation).
-  * `solve_adjoint`: the dense solve on the dense path; otherwise
-    restarted GMRES on the adjoint's true (indefinite) Hessian,
-    right-preconditioned by the BCR solve of each cloth's tridiagonal
-    (`gridsolve.GridPreconditioner`). The MINRES branch of the JAX package
-    (scenes without a cloth grid plan) and CG without a DIA plan (the pull
-    path) are not ported.
+  * `solve_adjoint`: the dense solve on the dense path; restarted GMRES
+    on the adjoint's true (indefinite) Hessian, right-preconditioned by
+    the BCR solve of each cloth's tridiagonal
+    (`gridsolve.GridPreconditioner`), on a scene with a DIA cloth grid
+    plan; left-preconditioned MINRES (`solve_minres`, the |H| element
+    blocks as its SPD preconditioner) otherwise.
 
 The JAX package runs these loops as `lax.while_loop`s on the device. Here
 they are Python loops: every loop test reads one scalar back to the host
@@ -82,11 +86,14 @@ def solve_dense(spec: SceneSpec, groups, F):
 def prepare_solver_state(spec: SceneSpec, groups, dtype):
     """Everything the iterative solve needs, built once per operator: the
     DIA store, the leftover pull blocks, the preconditioner diagonals and
-    the split contact blocks."""
-    if spec.dia is None:
-        raise NotImplementedError("CG on a scene without a DIA plan (the "
-                                  "pull path) is not ported yet")
+    the split contact blocks; without a DIA plan, the pull blocks (when
+    the spec has hvp slots) and the block diagonal."""
     st = {"H": groups["H"], "idx": groups["idx"]}
+    if spec.dia is None:
+        if spec.hvp_slots is not None:
+            st["nbr"] = elements.gather_neighbor_blocks(spec, groups, dtype)
+        st["D"] = elements.diag_blocks(spec, groups)
+        return st
     st["dia"] = elements.assemble_dia(spec, groups, dtype)
     if spec.hvp_slots is not None and spec.hvp_slots.D > 0:
         st["nbr"] = elements.gather_neighbor_blocks(spec, groups, dtype)
@@ -128,6 +135,30 @@ def _fused_precond_T(spec: SceneSpec, st, D, Dinv, w, smooth, dtype, unf2):
     return precond
 
 
+def _polynomial_precond_T(spec: SceneSpec, st, Dinv, w, smooth, dtype, unf2,
+                          m2):
+    """The damped block-Jacobi smoothing polynomial sweep by sweep on
+    (3, NVp) vectors: z = w D^-1 r, then `smooth` sweeps
+    z <- z + w D^-1 (r - A_cheap z), A_cheap the static DIA part (through
+    dia_apply), the leftover pull rows and the contact diagonal. The JAX
+    package's preconditioner off its kernel (f64, and f32 off a TPU)."""
+    nbr = st.get("nbr")
+    DinvT = elements.blocks_to_t33(spec, Dinv, dtype)
+    DcT = elements.blocks_to_t33(spec, st["Dc"], dtype)
+
+    def A_cheap(x2):
+        return (elements.hvp_dia_static_T(spec, st["dia"], nbr, x2, unf2, m2)
+                + torch.einsum("ijn,jn->in", DcT, x2))
+
+    def precond(r2):
+        z2 = w * torch.einsum("ijn,jn->in", DinvT, r2)
+        for _ in range(smooth):
+            z2 = z2 + w * torch.einsum("ijn,jn->in", DinvT, r2 - A_cheap(z2))
+        return z2
+
+    return precond
+
+
 def _warm_split(A, F, x0):
     """Optimally scaled warm start: alpha = argmin |F - a A x0|. Returns
     (base, b_eff) with base = alpha x0 and b_eff = F - A base; a useless
@@ -142,11 +173,60 @@ def _warm_split(A, F, x0):
 
 
 def solve_cg_prepared(spec: SceneSpec, st, F, return_iters=False, x0=None):
-    """Block-Jacobi PCG on H p = F (frozen-masked), warm-started from x0."""
-    if spec.dia is None:
-        raise NotImplementedError("CG on a scene without a DIA plan (the "
-                                  "pull path) is not ported yet")
-    return _solve_cg_prepared_T(spec, st, F, return_iters=return_iters, x0=x0)
+    """Block-Jacobi PCG on H p = F (frozen-masked), warm-started from x0:
+    in the (3, NVp) layout with a DIA plan (_solve_cg_prepared_T), else in
+    the (NV, 3) layout on the pull or plain operator. Without the cheap
+    operator of a DIA plan the preconditioner is one block-Jacobi sweep
+    (no smoothing), as in the JAX package. The stopping test
+    |r|^2 > (fwd_tol |F|)^2 + tiny, finite, it < cg_max_iter is read on
+    the host once per iteration."""
+    if spec.dia is not None:
+        return _solve_cg_prepared_T(spec, st, F, return_iters=return_iters,
+                                    x0=x0)
+    A = _ops_from_state(spec, st)
+    Dinv = _inv3x3(st["D"])
+
+    def precond(r):
+        return torch.einsum("nij,nj->ni", Dinv, r)
+
+    dtype = F.dtype
+    bnorm = torch.linalg.vector_norm(F)
+    fwd_tol = spec.cg_tol if spec.fwd_tol is None else spec.fwd_tol
+    tol2 = (fwd_tol * bnorm) ** 2 + torch.finfo(dtype).tiny
+    base, b = None, F
+    if x0 is not None:
+        base, b = _warm_split(A, F, x0)
+    x, it = _pcg_loop(spec, A, precond, b, tol2)
+    if base is not None:
+        x = base + x
+    return (x, it) if return_iters else x
+
+
+def _pcg_loop(spec: SceneSpec, A, precond, b, tol2):
+    """The PCG iteration from x = 0 on A x = b: (x, iterations)."""
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    p = z
+    rz = torch.sum(r * z)
+    it = 0
+    while it < spec.cg_max_iter:
+        rr = torch.sum(r * r)
+        if not bool((rr > tol2) & torch.isfinite(rr)):  # host sync
+            break
+        Ap = A(p)
+        alpha = _safe_div(rz, torch.sum(p * Ap))
+        # breakdown guard: never poison x
+        alpha = torch.where(torch.isfinite(alpha), alpha,
+                            torch.zeros_like(alpha))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.sum(r * z)
+        p = z + _safe_div(rz_new, rz) * p
+        rz = rz_new
+        it += 1
+    return x, it
 
 
 def solve_cg(spec: SceneSpec, groups, F, x0=None, return_iters=False):
@@ -196,20 +276,8 @@ def _solve_cg_prepared_T(spec: SceneSpec, st, F, return_iters=False,
             precond = _fused_precond_T(spec, st, D, Dinv, w, smooth, dtype,
                                        unf2)
         else:
-            DinvT = elements.blocks_to_t33(spec, Dinv, dtype)
-            DcT = elements.blocks_to_t33(spec, st["Dc"], dtype)
-
-            def A_cheap(x2):
-                return (elements.hvp_dia_static_T(spec, st["dia"], nbr, x2,
-                                                  unf2, m2)
-                        + torch.einsum("ijn,jn->in", DcT, x2))
-
-            def precond(r2):
-                z2 = w * torch.einsum("ijn,jn->in", DinvT, r2)
-                for _ in range(smooth):
-                    z2 = z2 + w * torch.einsum("ijn,jn->in", DinvT,
-                                               r2 - A_cheap(z2))
-                return z2
+            precond = _polynomial_precond_T(spec, st, Dinv, w, smooth, dtype,
+                                            unf2, m2)
     else:
         DinvT = elements.blocks_to_t33(spec, Dinv, dtype)
 
@@ -223,29 +291,7 @@ def _solve_cg_prepared_T(spec: SceneSpec, st, F, return_iters=False,
     base = None
     if x0 is not None:
         base, b = _warm_split(A, b, elements.to_t2(spec, x0))
-
-    x = torch.zeros_like(b)
-    r = b
-    z = precond(r)
-    p = z
-    rz = torch.sum(r * z)
-    it = 0
-    while it < spec.cg_max_iter:
-        rr = torch.sum(r * r)
-        if not bool((rr > tol2) & torch.isfinite(rr)):  # host sync
-            break
-        Ap = A(p)
-        alpha = _safe_div(rz, torch.sum(p * Ap))
-        # breakdown guard: never poison x
-        alpha = torch.where(torch.isfinite(alpha), alpha,
-                            torch.zeros_like(alpha))
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = precond(r)
-        rz_new = torch.sum(r * z)
-        p = z + _safe_div(rz_new, rz) * p
-        rz = rz_new
-        it += 1
+    x, it = _pcg_loop(spec, A, precond, b, tol2)
     if base is not None:
         x = base + x
     x = elements.from_t2(spec, x)
@@ -255,21 +301,39 @@ def _solve_cg_prepared_T(spec: SceneSpec, st, F, return_iters=False,
 
 
 def _ops_from_state(spec: SceneSpec, st):
-    """The full hybrid-DIA operator A on (NV, 3) vectors from a prepared
-    operator state."""
-    if spec.dia is None:
-        raise NotImplementedError("operators without a DIA plan (the pull "
-                                  "path) are not ported yet")
+    """The full operator A on (NV, 3) vectors from a prepared operator
+    state: the hybrid-DIA operator with a DIA plan, the pull operator on a
+    spec with hvp slots, else the plain scatter operator."""
     groups = {"idx": st["idx"], "H": st["H"]}
     for k in ("Dcon", "idx_con", "H_con", "mm_S", "mm_H"):
         if k in st:
             groups[k] = st[k]
     nbr = st.get("nbr")
-
-    def A(x):
-        return elements.hvp_dia(spec, st["dia"], nbr, groups, x)
-
+    if spec.dia is not None:
+        def A(x):
+            return elements.hvp_dia(spec, st["dia"], nbr, groups, x)
+    elif spec.hvp_slots is not None:
+        def A(x):
+            return elements.hvp_pull(spec, nbr, groups, x)
+    else:
+        def A(x):
+            return elements.hvp(spec, groups, x)
     return A
+
+
+def _cheap_op_from_state(spec: SceneSpec, st):
+    """The cheap operator of the smoothing polynomial on (NV, 3) vectors
+    (the static DIA part plus the contact diagonal), or None without a DIA
+    plan: the second operator of the JAX package's _ops_from_state."""
+    if spec.dia is None:
+        return None
+    nbr = st.get("nbr")
+
+    def A_cheap(x):
+        return (elements.hvp_dia_static(spec, st["dia"], nbr, x)
+                + torch.einsum("nij,nj->ni", st["Dc"], x))
+
+    return A_cheap
 
 
 def solve_gmres(spec: SceneSpec, groups, F, x0=None, return_iters=False):
@@ -292,6 +356,119 @@ def solve_gmres(spec: SceneSpec, groups, F, x0=None, return_iters=False):
     adj_tol = spec.cg_tol if spec.adj_tol is None else spec.adj_tol
     return _gmres_loop(A, M, F, adj_tol, restart, spec.cg_max_iter, x0=x0,
                        return_iters=return_iters)
+
+
+def _abs_element_blocks(H):
+    """Element-wise matrix absolute value: each fused (4, 4, 3, 3) block in
+    its symmetrised 12x12 form, decomposed (spd._eigh: float32 blocks in
+    float64, a failure raises) and rebuilt with |eigenvalues|. |H_e| is PSD
+    and spectrally equivalent to H_e away from its null directions: the
+    building block of MINRES's SPD preconditioner."""
+    E = H.shape[0]
+    H12 = H.permute(0, 1, 3, 2, 4).reshape(E, 12, 12)
+    H12 = 0.5 * (H12 + H12.transpose(-1, -2))
+    w, v = spd._eigh(H12)
+    H12 = torch.einsum("eik,ek,ejk->eij", v, torch.abs(w), v)
+    return H12.reshape(E, 4, 3, 4, 3).permute(0, 1, 3, 2, 4)
+
+
+def solve_minres(spec: SceneSpec, groups, F, return_iters=False, x0=None):
+    """Preconditioned MINRES on H z = F for the adjoint's true
+    (unprojected, possibly indefinite) Hessian, on a scene without a DIA
+    cloth grid plan. The SPD preconditioner comes from a second operator
+    assembled from the element-wise absolute values |H_e|: the BCR solve
+    of its cloth tridiagonal with a grid plan (unreached through
+    solve_adjoint, which takes GMRES there), the damped block-Jacobi
+    smoothing polynomial of its cheap DIA operator with a DIA plan and no
+    grid plan, plain block-Jacobi |D|^-1 without a DIA plan.
+
+    Paige-Saunders MINRES with left preconditioning (the scipy layout),
+    warm-started from x0 by the optimally scaled split (the tolerance
+    stays relative to the original F). The loop runs while phibar > tol,
+    finite and it < cg_max_iter, read on the host once per iteration."""
+    st = prepare_solver_state(spec, groups, F.dtype)
+    A = _ops_from_state(spec, st)
+    base = None
+    F_orig = F
+    if x0 is not None:
+        base, F = _warm_split(A, F, x0)
+
+    gprec = {"idx": groups["idx"], "H": _abs_element_blocks(groups["H"])}
+    stp = prepare_solver_state(spec, gprec, F.dtype)
+    A_pc_cheap = _cheap_op_from_state(spec, stp)
+    Dinv = spd.abs_inv_3x3(stp["D"])
+
+    grid_plan = spec.dev.grid_plan
+    smooth = spec.precond_smooth if A_pc_cheap is not None else 0
+    if grid_plan and spec.dia is not None:
+        M = gridsolve.GridPreconditioner(spec, grid_plan, stp["dia"], Dinv,
+                                         stp.get("Dc")).apply
+    elif smooth > 0:
+        wgt = spec.precond_omega
+
+        def M(r):
+            z = wgt * torch.einsum("nij,nj->ni", Dinv, r)
+            for _ in range(smooth):
+                z = z + wgt * torch.einsum("nij,nj->ni", Dinv,
+                                           r - A_pc_cheap(z))
+            return z
+    else:
+        def M(r):
+            return torch.einsum("nij,nj->ni", Dinv, r)
+
+    adj_tol = spec.cg_tol if spec.adj_tol is None else spec.adj_tol
+    d = F.dtype
+    tiny = torch.finfo(d).tiny
+    b = F
+    y = M(b)
+    beta1 = torch.sqrt(torch.clamp(torch.sum(b * y), min=tiny))
+    if base is None:
+        tol = adj_tol * beta1
+    else:
+        # one extra M apply: the tolerance of the original right-hand side
+        yF = M(F_orig)
+        tol = adj_tol * torch.sqrt(torch.clamp(torch.sum(F_orig * yF),
+                                               min=tiny))
+
+    def scalar(v):
+        return torch.tensor(v, dtype=d, device=F.device)
+
+    x = torch.zeros_like(b)
+    r1, r2 = b, b
+    oldb, beta, dbar, epsln = scalar(0.0), beta1, scalar(0.0), scalar(0.0)
+    phibar, cs, sn = beta1, scalar(-1.0), scalar(0.0)
+    w, w2 = torch.zeros_like(b), torch.zeros_like(b)
+    it = 0
+    while it < spec.cg_max_iter and bool(
+            (phibar > tol) & torch.isfinite(phibar)):  # host sync
+        v = y / beta
+        yv = A(v)
+        if it >= 1:
+            yv = yv - (beta / oldb) * r1
+        alfa = torch.sum(v * yv)
+        yv = yv - (alfa / beta) * r2
+        r1, r2 = r2, yv
+        y = M(r2)
+        oldb = beta
+        beta = torch.sqrt(torch.clamp(torch.sum(r2 * y), min=tiny))
+        oldeps = epsln
+        delta = cs * dbar + sn * alfa
+        gbar = sn * dbar - cs * alfa
+        epsln = sn * beta
+        dbar = -cs * beta
+        gamma = torch.clamp(torch.sqrt(gbar**2 + beta**2), min=tiny)
+        cs = gbar / gamma
+        sn = beta / gamma
+        phi = cs * phibar
+        phibar = sn * phibar
+        w1 = w2
+        w2 = w
+        w = (v - oldeps * w1 - delta * w2) / gamma
+        x = x + phi * w
+        it += 1
+    if base is not None:
+        x = base + x
+    return (x, it) if return_iters else x
 
 
 def _gmres_loop(A, M, b, tol, m, max_total=None, x0=None,
@@ -410,16 +587,15 @@ def _gmres_loop(A, M, b, tol, m, max_total=None, x0=None,
 def solve_adjoint(spec: SceneSpec, groups, F, x0=None, return_iters=False):
     """Linear solve of the backward sweep: direct on the dense path (0
     iterations, x0 unused), grid-preconditioned GMRES on a scene with a
-    DIA cloth plan. x0: optional warm start (the previous backward step's
-    solution), optimally scaled so that it is never worse than a cold
-    start."""
+    DIA cloth grid plan, MINRES with the |H| preconditioner otherwise.
+    x0: optional warm start (the previous backward step's solution),
+    optimally scaled so that it is never worse than a cold start."""
     if spec.solver == "dense":
         x = solve_dense(spec, groups, F)
         return (x, 0) if return_iters else x
-    if spec.dia is None or not spec.dev.grid_plan:
-        raise NotImplementedError("the MINRES adjoint solve (scenes without "
-                                  "a DIA cloth grid plan) is not ported yet")
-    return solve_gmres(spec, groups, F, x0=x0, return_iters=return_iters)
+    if spec.dia is not None and spec.dev.grid_plan:
+        return solve_gmres(spec, groups, F, x0=x0, return_iters=return_iters)
+    return solve_minres(spec, groups, F, x0=x0, return_iters=return_iters)
 
 
 def newton_solve(spec: SceneSpec, params, pos0, prev_pos, vel, ref_angle,
@@ -443,12 +619,14 @@ def newton_solve(spec: SceneSpec, params, pos0, prev_pos, vel, ref_angle,
     and takes the accepted trial's forces as the next residual.
 
     `stats` (a dict) accumulates the counts newton_iters, hess_builds,
-    cg_iters and ls_trials, and appends each call's Newton iterations to
-    newton_per_step."""
+    cg_iters and ls_trials, appends each call's Newton iterations to
+    newton_per_step and each Newton iteration's CG iterations to
+    cg_per_newton (0 on the dense solve)."""
     if stats is not None:
         for k in ("newton_iters", "hess_builds", "cg_iters", "ls_trials"):
             stats.setdefault(k, 0)
         stats.setdefault("newton_per_step", [])
+        stats.setdefault("cg_per_newton", [])
 
     x_hat = pos0 + vel * spec.dt + (
         spec.gravity + spec.ext_force / spec.mass[:, None]) * spec.dt**2
@@ -506,6 +684,7 @@ def _newton_full(spec, params, start, prev_pos, vel, ref_angle, contact,
             stats["newton_iters"] += 1
             stats["hess_builds"] += 1
             stats["cg_iters"] += n_cg
+            stats["cg_per_newton"].append(n_cg)
     return pos, it
 
 
@@ -556,4 +735,5 @@ def _newton_modified(spec, params, start, prev_pos, vel, ref_angle, contact,
             if stats is not None:
                 stats["newton_iters"] += 1
                 stats["cg_iters"] += n_cg
+                stats["cg_per_newton"].append(n_cg)
     return pos, it

@@ -93,14 +93,15 @@ def time_step(spec: SceneSpec, params: Params, state: SimState, action,
 
 
 def replay_step(spec: SceneSpec, params: Params, buffers, t: int, action,
-                vel0):
+                vel0, stats=None):
     """Step t+1 of a recorded tape (the `simulate(save_contacts=True)`
     buffers, of this package or carried from the JAX package) from the
     tape's own state at t: its gripper moved by `action`, Newton minimising
     with the contact set the recorded step used. The velocity at t is
     `vel0` for t = 0 and is rebuilt from the tape's positions otherwise.
     Returns the Newton positions; the recording holds its own as
-    buffers["pos"][t + 1]."""
+    buffers["pos"][t + 1]. `stats` collects the solver counts (see
+    solver.newton_solve)."""
     def grip(i):
         return GripperState(pos=buffers["gripper_pos"][i],
                             rot=buffers["gripper_rot"][i],
@@ -123,7 +124,7 @@ def replay_step(spec: SceneSpec, params: Params, buffers, t: int, action,
     contact = ContactSet(**{f.name: getattr(c, f.name)[t]
                             for f in dataclasses.fields(ContactSet)})
     return solver.newton_solve(spec, params, pos, pos, vel,
-                               buffers["ref_angle"][t], contact)
+                               buffers["ref_angle"][t], contact, stats=stats)
 
 
 def rollout(spec: SceneSpec, params: Params, state: SimState, actions,
@@ -157,6 +158,19 @@ def simulate(spec: SceneSpec, params: Params, state0: SimState, actions,
     final, saved = rollout(spec, params, state0, actions, stats=stats,
                            save_contacts=save_contacts)
     return final, _assemble_buffers(state0, final, saved, save_contacts)
+
+
+def simulate_chunked(spec: SceneSpec, params: Params, state0: SimState,
+                     actions, chunk: int, stats=None,
+                     save_contacts: bool = False):
+    """simulate() under the JAX package's chunked signature. The JAX
+    package runs its rollout in host-stitched segments of `chunk` steps, a
+    workaround for its TPU worker's long scans; the port's rollout is a
+    host loop already, so this is simulate() itself, bit-equal to it."""
+    if chunk < 1:
+        raise ValueError(f"chunk={chunk} must be >= 1")
+    return simulate(spec, params, state0, actions, stats=stats,
+                    save_contacts=save_contacts)
 
 
 def _assemble_buffers(state0: SimState, final: SimState, saved,

@@ -3,17 +3,83 @@ projection and the contact constraint set (counterpart of
 `thinshelllab_tpu/ops/collision.py`; reference engine/geometry.py:23-229
 and BaseScene.contact_pair_analysis:778-835).
 
-The broadphase is the dense per-pair L-inf sweep: each pair's query
-vertices against all of that pair's source-face centroids, the K nearest
-kept. Pairs with at least `ContactSpec.hash_min_faces` source faces take a
-spatial hash in the JAX package; that path is not ported and raises.
+The broadphase is, per contact pair, either the dense L-inf sweep (each
+query vertex against all of the pair's source-face centroids, the K
+nearest kept) or, for pairs with at least `ContactSpec.hash_min_faces`
+source faces and a builder hash descriptor, a spatial hash: the centroids
+counting-sorted into a static grid of cell size 2 grid_h, each query
+reading at most `cap` faces from each of its 27 neighbour cells and
+keeping the 2K nearest of those. Self-contact pairs (a body against its
+own faces) skip the faces incident to the query vertex and accept only
+face-interior projections.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.spec import ContactSet, SceneSpec
 from .energies import _cross, _dot, _norm
+
+
+# 3x3x3 neighbourhood offsets of the spatial-hash broadphase
+_OFF27 = np.array(
+    [(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)],
+    np.int64)
+# (27, 27) strictly lower triangle: neighbour b repeats an earlier a
+_TRIL27 = np.tril(np.ones((27, 27), bool), -1)
+
+
+def _cells(x, origin, cutoff, G):
+    """Integer grid coordinates of points x, clamped into the (Gx, Gy, Gz)
+    grid: (..., 3) int64."""
+    hi = torch.tensor(G, dtype=torch.int64, device=x.device) - 1
+    c = torch.floor((x - origin) / cutoff).to(torch.int64)
+    return torch.minimum(torch.clamp(c, min=0), hi)
+
+
+def _hash_grid(cent, cutoff, G):
+    """Counting-sort the source centroids into the static (Gx, Gy, Gz) grid
+    of cell size `cutoff`: (origin, sorted cell ids, face permutation). The
+    origin follows the centroids; coordinates clamp into the grid, which
+    merges out-of-range faces into boundary cells (a superset of the
+    candidates, never a miss). The sort is stable, as the JAX package's
+    sort_key_val."""
+    _, Gy, Gz = G
+    origin = torch.amin(cent, dim=0)
+    cell = _cells(cent, origin, cutoff, G)
+    cid = (cell[:, 0] * Gy + cell[:, 1]) * Gz + cell[:, 2]
+    sc, perm = torch.sort(cid, stable=True)
+    return origin, sc, perm
+
+
+def _hash_candidates(origin, sc, perm, q, cutoff, G, cap):
+    """Per query: at most `cap` faces from each of the 27 neighbour cells of
+    its cell. Every face whose centroid lies within L-inf `cutoff` of q is
+    among them (cell size == cutoff) while no cell holds more than cap
+    faces. Returns (cand (c, 27 cap) local face ids, ok (c, 27 cap)); the
+    shapes depend on cap only."""
+    nf = sc.shape[0]
+    _, Gy, Gz = G
+    dev = q.device
+    hi = torch.tensor(G, dtype=torch.int64, device=dev) - 1
+    qcell = _cells(q, origin, cutoff, G)
+    neigh = torch.minimum(torch.clamp(
+        qcell[:, None, :] + torch.as_tensor(_OFF27, device=dev)[None],
+        min=0), hi)
+    ncid = (neigh[..., 0] * Gy + neigh[..., 1]) * Gz + neigh[..., 2]
+    # boundary clamping can collapse distinct offsets onto one cell; the
+    # repeats are masked so that duplicates never crowd out real candidates
+    eq = ncid[:, :, None] == ncid[:, None, :]
+    is_dup = torch.any(eq & torch.as_tensor(_TRIL27, device=dev)[None],
+                       dim=2)
+    start = torch.searchsorted(sc, ncid, right=False)  # (c, 27)
+    idxs = start[..., None] + torch.arange(cap, device=dev)
+    inb = idxs < nf
+    idxs = torch.clamp(idxs, max=nf - 1)
+    ok = inb & (sc[idxs] == ncid[..., None]) & ~is_dup[..., None]
+    cand = perm[idxs]
+    return cand.reshape(q.shape[0], -1), ok.reshape(q.shape[0], -1)
 
 
 def pt2tri(x, p1, p2, p3):
@@ -107,6 +173,16 @@ def _nearest_k(linf, K):
     return torch.sort(linf, dim=1, stable=True).indices[:, :K]
 
 
+def _first_argmax(score):
+    """Index of the first maximum of each row, as jnp.argmax gives it (all
+    -inf rows included): torch.argmax on CUDA does not promise which of
+    equal maxima it returns."""
+    K = score.shape[1]
+    ar = torch.arange(K, device=score.device)
+    is_max = score == torch.amax(score, dim=1, keepdim=True)
+    return torch.amin(torch.where(is_max, ar, K), dim=1)
+
+
 def projection_query(spec: SceneSpec, pos, vn, proj_flag, proj_dir):
     """For each contact query slot, find the closest source-body face and
     update the latched (proj_flag, proj_dir); also returns the chosen
@@ -114,7 +190,12 @@ def projection_query(spec: SceneSpec, pos, vn, proj_flag, proj_dir):
 
     Per pair: an L-inf centroid distance matrix of the pair's queries
     against only its own source faces (chunked to 32M elements), the K
-    nearest faces, then the exact point-triangle test on those K."""
+    nearest faces, then the exact point-triangle test on those K. A pair
+    with a hash descriptor and at least hash_min_faces source faces reads
+    its candidates from the spatial hash instead and keeps the 2K
+    nearest. Candidates are ordered by (L-inf distance, position), the
+    order of jax.lax.top_k, since the order decides exact ties in the
+    near-window."""
     con = spec.contact
     faces = spec.faces
     centroids = (pos[faces[:, 0]] + pos[faces[:, 1]] + pos[faces[:, 2]]) / 3.0
@@ -122,10 +203,13 @@ def projection_query(spec: SceneSpec, pos, vn, proj_flag, proj_dir):
     max_elems = 32 * 1024 * 1024  # bound the (chunk, nf) distance matrix
     tiny = torch.finfo(pos.dtype).tiny
 
-    def detail(vid, cand_f, cand_ok):
+    def detail(vid, cand_f, cand_ok, is_self):
         """Exact evaluation of K candidates for a batch of queries."""
         x = pos[vid]            # (c, 3)
         tri = faces[cand_f]     # (c, K, 3)
+        if is_self:
+            incident = torch.any(tri == vid[:, None, None], dim=2)
+            cand_ok = cand_ok & ~incident
         p1, p2, p3 = pos[tri[..., 0]], pos[tri[..., 1]], pos[tri[..., 2]]
         case, d, w = pt2tri(x[:, None, :], p1, p2, p3)
         vt = w[..., 0:1] * p1 + w[..., 1:2] * p2 + w[..., 2:3] * p3
@@ -137,9 +221,13 @@ def projection_query(spec: SceneSpec, pos, vn, proj_flag, proj_dir):
         d_min = torch.amin(d, dim=1, keepdim=True)
         near = d < d_min + 1e-5
         score = torch.where(near, cos, torch.full_like(cos, -float("inf")))
-        best = torch.argmax(score, dim=1)
+        best = _first_argmax(score)
         rows = torch.arange(vid.shape[0], device=pos.device)
         found = torch.isfinite(d_min[:, 0])
+        if is_self:
+            # self-contact accepts face-interior projections only
+            # (reference geometry_self.project_pair_self:166-230)
+            found = found & (case[rows, best] == 0)
         return found, tri[rows, best], w[rows, best]
 
     C = con.capacity
@@ -150,27 +238,39 @@ def projection_query(spec: SceneSpec, pos, vn, proj_flag, proj_dir):
     w_out = torch.tensor([1.0, 0.0, 0.0], dtype=pos.dtype,
                          device=pos.device).expand(C, 3).clone()
 
-    for cq_start, count, f_start, nf, is_self in con.pair_desc:
-        if is_self:
-            raise NotImplementedError("self-contact pairs are not ported yet")
-        if nf >= con.hash_min_faces:
-            raise NotImplementedError(
-                f"spatial-hash broadphase ({nf} source faces >= "
-                f"hash_min_faces={con.hash_min_faces}) is not ported yet")
+    for pi, (cq_start, count, f_start, nf, is_self) in enumerate(
+            con.pair_desc):
         K = min(con.top_k, nf)
         cent = centroids[f_start : f_start + nf]
+        hd = con.hash_desc[pi] if pi < len(con.hash_desc) else None
+        if nf < con.hash_min_faces:
+            hd = None  # the dense sweep below the crossover
+        if hd is not None:
+            grid = _hash_grid(cent, cutoff, hd[:3])  # once per pair
         chunk = max(1, min(count, max(1, max_elems // max(nf, 1))))
         for lo in range(0, count, chunk):
             hi = min(count, lo + chunk)
             vid = con.cq_vert[cq_start + lo : cq_start + hi]
             q = pos[vid]
-            linf = torch.abs(cent[None, :, 0] - q[:, None, 0])
-            for dim in (1, 2):
-                linf = torch.maximum(
-                    linf, torch.abs(cent[None, :, dim] - q[:, None, dim]))
-            top_idx = _nearest_k(linf, K)
-            cand_ok = torch.gather(linf, 1, top_idx) < cutoff
-            f, t, w = detail(vid, f_start + top_idx, cand_ok)
+            if hd is not None:
+                cand, okh = _hash_candidates(*grid, q, cutoff, hd[:3], hd[3])
+                linf = torch.amax(torch.abs(cent[cand] - q[:, None, :]),
+                                  dim=-1)
+                linf = torch.where(okh, linf,
+                                   torch.full_like(linf, float("inf")))
+                # the prefilter makes a deeper exact stage cheap: twice the
+                # dense path's budget of candidates
+                sel = _nearest_k(linf, min(2 * K, cand.shape[1]))
+                cand_f = f_start + torch.gather(cand, 1, sel)
+            else:
+                linf = torch.abs(cent[None, :, 0] - q[:, None, 0])
+                for dim in (1, 2):
+                    linf = torch.maximum(
+                        linf, torch.abs(cent[None, :, dim] - q[:, None, dim]))
+                sel = _nearest_k(linf, K)
+                cand_f = f_start + sel
+            cand_ok = torch.gather(linf, 1, sel) < cutoff
+            f, t, w = detail(vid, cand_f, cand_ok, is_self)
             found[cq_start + lo : cq_start + hi] = f
             tri_out[cq_start + lo : cq_start + hi] = t
             w_out[cq_start + lo : cq_start + hi] = w

@@ -21,23 +21,35 @@ def _eigh(Hs):
     """`torch.linalg.eigh` on the blocks' own device; float32 blocks are
     decomposed in float64 and the result cast back. In float32 cuSOLVER's
     batched Jacobi solver refused ill-conditioned 9x9 element Hessians of
-    lifting and sliding and returned NaN for finite 12x12 batches of
-    sliding without raising (PERF.md, `scripts/probe_eigh_fault.py`).
-    A refusal, or a non-finite result, for finite blocks raises; non-finite
-    blocks give NaN, as the JAX package's eigh does."""
+    lifting and sliding, and in a long process returned NaN for the
+    all-zero blocks of finite 12x12 batches without raising (PERF.md,
+    `scripts/probe_eigh_fault.py`); a float64 batch of the self-contact
+    hairpin failed the same way late in a long process. An all-zero block
+    is decomposed exactly (eigenvalues 0, eigenvectors I) without the
+    solver. A refusal, or a non-finite result, for finite blocks raises;
+    non-finite blocks give NaN, as the JAX package's eigh does."""
     H = Hs.double() if Hs.dtype == torch.float32 else Hs
+    k = H.shape[-1]
+    zero = ~H.reshape(*H.shape[:-2], k * k).any(dim=-1)
+    eye = torch.eye(k, dtype=H.dtype, device=H.device)
     try:
-        w, v = torch.linalg.eigh(H)
-        ok = bool(torch.isfinite(w).all() & torch.isfinite(v).all())
-    except torch.linalg.LinAlgError:
-        ok = False
+        w, v = torch.linalg.eigh(torch.where(zero[..., None, None], eye, H))
+        bad = ~(torch.isfinite(w).all(dim=-1)
+                & torch.isfinite(v).all(dim=(-1, -2)))
+        ok = not bool(bad.any())
+    except torch.linalg.LinAlgError as e:
+        ok, bad = False, str(e).splitlines()[0]
     if not ok:
         if bool(torch.isfinite(H).all()):
+            what = (f"{int(bad.sum())} blocks with a non-finite result"
+                    if isinstance(bad, torch.Tensor) else f"refused: {bad}")
             raise torch.linalg.LinAlgError(
                 f"eigh failed on a finite {H.dtype} batch of shape "
-                f"{tuple(H.shape)} on {H.device}")
+                f"{tuple(H.shape)} on {H.device} ({what})")
         nan = torch.full_like(Hs, float("nan"))
         return nan[..., 0], nan
+    w = torch.where(zero[..., None], torch.zeros_like(w), w)
+    v = torch.where(zero[..., None, None], eye, v)
     return w.to(Hs.dtype), v.to(Hs.dtype)
 
 

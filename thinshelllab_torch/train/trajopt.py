@@ -23,9 +23,9 @@ from ..scenes.base import TaskScene, resolve_device
 
 class TrajOptDriver:
     """device: where the scene runs (default the CUDA card; no card
-    raises). fwd_chunk (the JAX package's host-stitched rollout, a TPU
-    workaround) is not ported; the reward-curve PNG waits for the render
-    slice."""
+    raises). fwd_chunk: the JAX package's rollout segments, kept for its
+    API (stepper.simulate_chunked, which is simulate() in the port). The
+    reward-curve PNG waits for the render slice."""
 
     def __init__(
         self,
@@ -42,11 +42,7 @@ class TrajOptDriver:
         fwd_chunk: Optional[int] = None,
         device=None,
     ):
-        if fwd_chunk:
-            raise NotImplementedError(
-                "fwd_chunk (host-stitched rollout chunks, a workaround for "
-                "the TPU worker's long scans) is not ported; the port's "
-                "rollout is a host loop")
+        self.fwd_chunk = fwd_chunk
         self.device = resolve_device(device, "TrajOptDriver")
         self.scene = scene
         self.reward_name = reward_name
@@ -71,6 +67,10 @@ class TrajOptDriver:
 
     def forward(self, actions, stats=None):
         """The rollout from the scene's initial state: (final, buffers)."""
+        if self.fwd_chunk:
+            return stepper.simulate_chunked(self.spec, self.params,
+                                            self.state0, actions,
+                                            self.fwd_chunk, stats=stats)
         return stepper.simulate(self.spec, self.params, self.state0, actions,
                                 stats=stats)
 
