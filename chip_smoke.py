@@ -38,7 +38,16 @@ tape instead: each step replayed from the JAX state with the JAX contact
 set, and the backward); [scenes] runs a 1-step f64 forward and
 backward at the published Newton cap; [scenes-trajopt] one f32
 TrajOptDriver iteration of every scene with a gripper; [dp] the system
-identification driver on bouncing.
+identification driver on bouncing. The policy-search layers follow:
+[cmaes-golden] holds the CPU test's f64 CMAESDriver generation and
+rollout_stop_step on the JAX package's rammed-pad tape against the JAX
+runs (tests/data/cmaes_golden.npz); [cmaes] runs one f32 generation on
+the published folding scene; [cmaes-cg] one f32 generation on forming
+under solver="cg", which must launch both kernels; [rl-golden] holds the
+CPU test's f64 Env, EvalEnv and BatchedEnv runs against the JAX runs
+(tests/data/rl_golden.npz); [rl] runs one update of each native trainer
+(PPO, SAC, recurrent PPO) on a BatchedEnv of the published folding scene
+in f32, timing env steps and policy updates.
 
 The engine's iterative paths follow, under `solver="cg"`: [cg-kernels]
 holds both kernels against their plain versions on the DIA plan of each
@@ -164,11 +173,18 @@ SCENES_T, SCENE_DZ, SCENE_DISP_MAX = 2, -2e-4, 0.05
 # default) at this T for every scene with a gripper (cut from 3 to 2, one
 # step, for the script's time target, PERF.md)
 SCENES_TRAJOPT_T = 2
+# the Newton cap of the f32 iterations of [scenes-trajopt] and
+# [cg-trajopt], cut from the published 50 (lifting's own is 15) to make
+# room for the policy-search phases within the script's time target: the
+# f32 Newton stalls at whatever cap it has (PERF.md §5), so the cut
+# shortens each stalled step and changes no gate
+TRAJOPT_NEWTON = 15
 # [dp]: ParamOptDriver iterations and one ParamCMAESDriver generation of
 # DP_POP on bouncing, f32 as the CLI runs them on a card (T cut from 3 to
 # 2, one step, and the CMA-ES generation moved from card to bouncing, one
-# scene, for the script's time target, PERF.md)
-DP_T, DP_ITERS, DP_LR, DP_POP = 2, 2, 1.0, 4
+# scene, for the script's time target; 2 iterations and a population of 4
+# cut to 1 and 2 to make room for the policy-search phases, PERF.md)
+DP_T, DP_ITERS, DP_LR, DP_POP = 2, 1, 1.0, 2
 # the task scenes under solver="cg" (tests/test_torch_solver_paths.py
 # made the JAX runs in tests/data/cg_scenes_golden.npz: f64, T=CG_T,
 # max_newton_iter=CG_NEWTON, each pad 0.2 mm down a step; folding, with no
@@ -219,6 +235,35 @@ GOLDEN_HAIRPIN = os.path.join(ROOT, "tests", "data", "hairpin_golden.npz")
 # f64 (tests/test_torch_collision_hash.py writes it)
 GOLDEN_HASH40K = os.path.join(ROOT, "tests", "data", "hash40k_golden.npz")
 HAIRPIN_CPU_ATOL, HAIRPIN_JAX_ATOL = 1e-12, 1e-9
+# the policy-search layers (tests/test_torch_cmaes.py and
+# tests/test_torch_rl.py made the JAX runs in these files: f64, folding at
+# table_n=4 with max_newton_iter=5)
+GOLDEN_CMAES = os.path.join(ROOT, "tests", "data", "cmaes_golden.npz")
+GOLDEN_RL = os.path.join(ROOT, "tests", "data", "rl_golden.npz")
+POLICY_GOLDEN_CFG = dict(table_n=4, max_newton_iter=5)
+# [cmaes-golden]: the CPU test's generation (pop 4, tot_step 2, abs_step 2,
+# seed 0) and the rammed-pad tape of tests/test_training.py (table_n=4,
+# max_newton_iter=4, T=8, 2.5 mm down a step); the CPU test's tolerances:
+# dense LU on both sides, sums in another order
+CMAES_POP, CMAES_TOT, CMAES_ABS = 4, 2, 2
+CMAES_REWARD_RTOL, CMAES_ES_TOL = 1e-9, 1e-9
+RAM_CFG, RAM_T, RAM_DZ = dict(table_n=4, max_newton_iter=4), 8, -2.5e-3
+# [cmaes-cg]: forming (a 63-offset DIA plan, no contact ties) under
+# solver="cg" in f32 as `cli cmaes --solver cg` runs it on a card, Newton
+# capped at CG_NEWTON (a depth cut: f32 Newton stalls at the published cap
+# of 50, each iteration a ~200-iteration CG solve, PERF.md §5)
+CMAES_CG_SCENE = "forming"
+# [rl-golden] (tests/test_torch_rl.py's runs): Env and EvalEnv on
+# Env("folding", ...), BatchedEnv(n=2) on folding with env 1 started at
+# t=1; float64 observations within 1e-9 m, the float32 ones within one
+# float32 rounding, rewards within 1e-9 relative
+RL_LIMIT, RL_OBS_ATOL, RL_REWARD_RTOL = 3, 1e-9, 1e-9
+RL_BATCHED_T0 = (0, 1)
+# [rl]: published folding in f32, BatchedEnv(n=2), one update of each
+# trainer (horizon 2; SAC start_steps 2, batch_size 4), Newton capped at 5
+# (a depth cut, as [scenes-golden] cuts it: the f32 Newton stalls at the
+# published cap of 50, about 10 s a step, PERF.md §5)
+RL_NEWTON, RL_ENVS, RL_HORIZON = 5, 2, 2
 # the card's published peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores, at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -237,10 +282,10 @@ def log(msg):
     print(msg, flush=True)
 
 
-def timed(name, fn, *args):
-    """fn(*args), and a line with its wall seconds."""
+def timed(name, fn, *args, **kw):
+    """fn(*args, **kw), and a line with its wall seconds."""
     t0 = time.perf_counter()
-    out = fn(*args)
+    out = fn(*args, **kw)
     log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -1301,12 +1346,14 @@ def scenes_phase(device):
 
 def scenes_trajopt_phase(device):
     """One f32 TrajOptDriver iteration at T=SCENES_TRAJOPT_T, as `cli
-    trajopt` runs it on a card, for every new scene with a gripper."""
+    trajopt` runs it on a card but with Newton capped at TRAJOPT_NEWTON,
+    for every new scene with a gripper."""
     from thinshelllab_torch.scenes import registry
     from thinshelllab_torch.train.trajopt import TrajOptDriver
 
     for name in NEW_SCENES:
-        sc = registry.make_scene(name, solver="auto", dtype=torch.float32)
+        sc = registry.make_scene(name, solver="auto", dtype=torch.float32,
+                                 max_newton_iter=TRAJOPT_NEWTON)
         if sc.n_part == 0:
             continue
         sc = scene_state(name, sc, device)
@@ -1364,6 +1411,232 @@ def dp_phase(device):
         f"{DP_POP} in {time.perf_counter() - t0:.2f} s")
     if not all(np.isfinite(v) for v in info.values()):
         raise AssertionError(f"dp bouncing CMA-ES: {info}")
+
+
+def cmaes_golden_check(device):
+    """[cmaes-golden]: the CPU test's CMAESDriver generation in f64 on the
+    card against the JAX run (each member's reward, stop step and early
+    flag, the strategy's mean and sigma after tell), and rollout_stop_step
+    on the JAX package's rammed-pad tape."""
+    from thinshelllab_torch.core.convert import buffers_from_reference
+    from thinshelllab_torch.scenes import folding
+    from thinshelllab_torch.train.cmaes import CMAESDriver, rollout_stop_step
+
+    z = np.load(GOLDEN_CMAES)
+    t0 = time.perf_counter()
+    drv = CMAESDriver(folding.make(**POLICY_GOLDEN_CFG), CMAES_TOT,
+                      CMAES_ABS, pop_size=CMAES_POP, seed=0, device=device)
+    info = drv.generation()
+    secs = time.perf_counter() - t0
+    want = z["gen.rewards"]
+    rel = float(np.max(np.abs(info["rewards"] - want) / np.abs(want)))
+    es_err = max(float(np.abs(drv.es.mean - z["gen.mean"]).max()),
+                 abs(drv.es.sigma - float(z["gen.sigma"])))
+    same = (info["stop_steps"] == z["gen.stop_steps"].tolist()
+            and info["early"] == z["gen.early"].tolist())
+    keys = [k[len("ram."):] for k in z.files if k.startswith("ram.")
+            and k not in ("ram.stop_step", "ram.early")]
+    tape = {k: v.to(device) for k, v in buffers_from_reference(
+        {k: z["ram." + k] for k in keys}).items()}
+    spec, _, params = folding.make(**RAM_CFG).to(device)
+    stop, early = rollout_stop_step(spec, params, tape)
+    ram_ok = (stop, early) == (int(z["ram.stop_step"]), bool(z["ram.early"]))
+    log(f"[cmaes-golden] folding table_n=4 f64 pop {CMAES_POP} tot_step "
+        f"{CMAES_TOT} abs_step {CMAES_ABS}: one generation in {secs:.2f} s; "
+        f"rewards {info['rewards'].tolist()} against the JAX run: max rel "
+        f"err {rel:.3e} (tol {CMAES_REWARD_RTOL:.0e}); stop steps "
+        f"{info['stop_steps']}, early {info['early']} equal: {same}; ES mean "
+        f"and sigma after tell {es_err:.3e} (tol {CMAES_ES_TOL:.0e}); "
+        f"rollout_stop_step on the JAX rammed-pad tape ({stop}, {early}) "
+        f"equal: {ram_ok}")
+    if not (rel <= CMAES_REWARD_RTOL and same and es_err <= CMAES_ES_TOL
+            and ram_ok):
+        raise AssertionError("CMAESDriver disagrees with the JAX run")
+
+
+def cmaes_phase(device, name, **kw):
+    """One CMAESDriver generation (pop CMAES_POP, tot_step CMAES_TOT,
+    abs_step CMAES_ABS) on a published scene in f32, as `cli cmaes` runs
+    it on a card: finite rewards. Returns (the DIA kernel launches of the
+    generation, its seconds)."""
+    from thinshelllab_torch.ops import dia_spmv as K
+    from thinshelllab_torch.scenes import registry
+    from thinshelllab_torch.train.cmaes import CMAESDriver
+
+    sc = registry.make_scene(name, dtype=torch.float32, **kw)
+    drv = CMAESDriver(sc, CMAES_TOT, CMAES_ABS, pop_size=CMAES_POP, seed=0,
+                      device=device)
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = drv.generation()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    tag = "cmaes-cg" if kw.get("solver") == "cg" else "cmaes"
+    s = sc.spec
+    plan = (f"DIA n_off {len(s.dia.offsets)}, NVp {s.dia.NVp}"
+            if s.dia is not None else "no DIA plan")
+    log(f"[{tag}] {name} f32 solver '{s.solver}' max_newton_iter "
+        f"{s.max_newton_iter}, {plan}: one generation of {CMAES_POP} "
+        f"(tot_step {CMAES_TOT}, abs_step {CMAES_ABS}) in {secs:.3f} s "
+        f"({secs / CMAES_POP:.3f} s a member); rewards "
+        f"{info['rewards'].tolist()}, stop steps {info['stop_steps']}, "
+        f"early {info['early']}; launches {launches}")
+    log(f"gen 0: best {info['best_reward']:.4f} mean {info['gen_mean']:.4f}")
+    if not np.all(np.isfinite(info["rewards"])):
+        raise AssertionError(f"{tag} {name}: rewards {info['rewards']}")
+    return launches, secs
+
+
+def _rl_obs_err(obs32, obs64, want32, want64):
+    """Largest |obs64 - want64| (m); raises where the float32 observation
+    is not obs64's rounding or is off want32 by more than one rounding."""
+    if not np.array_equal(obs32, obs64.astype(np.float32)):
+        raise AssertionError("float32 observation is not the rounded state")
+    if not np.all(np.abs(obs32 - want32)
+                  <= 2.0**-23 * np.abs(want64) + RL_OBS_ATOL):
+        raise AssertionError("float32 observation off the JAX one")
+    return float(np.abs(obs64 - want64).max())
+
+
+def rl_golden_check(device):
+    """[rl-golden]: the CPU test's Env, EvalEnv and BatchedEnv runs in f64
+    on the card against the JAX runs (tests/data/rl_golden.npz)."""
+    from thinshelllab_torch.scenes import registry
+    from thinshelllab_torch.scenes.base import observation
+    from thinshelllab_torch.train.rl_env import BatchedEnv, Env, EvalEnv
+
+    z = np.load(GOLDEN_RL)
+
+    def obs64(env, state):
+        return observation(env.spec, state).cpu().numpy()
+
+    def rel(got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        return float(np.max(np.abs(got - want)
+                            / np.maximum(np.abs(want), 1e-300)))
+
+    errs, rels, same = [], [], True
+    env = Env("folding", time_step=RL_LIMIT, device=device,
+              **POLICY_GOLDEN_CFG)
+    obs, _ = env.reset()
+    errs.append(_rl_obs_err(obs, obs64(env, env.state), z["env.obs0"],
+                            z["env.obs64_0"]))
+    a = np.zeros((RL_LIMIT, 6))
+    a[:, 0], a[:, 2], a[:, 4] = 1e-4, -6e-4, 2e-3
+    for t in range(RL_LIMIT):
+        obs, rew, done, _, _ = env.step(a[t].astype(np.float32))
+        o64 = obs64(env, env.state)
+        errs.append(float(np.abs(o64 - z["env.obs64"][t]).max()))
+        if not done:
+            errs.append(_rl_obs_err(obs, o64, z["env.obs"][t],
+                                    z["env.obs64"][t]))
+        elif obs.any() or rew != 0.0:
+            raise AssertionError("a done Env step returned a reward or obs")
+        if z["env.rew"][t] != 0.0:
+            rels.append(rel(rew, z["env.rew"][t]))
+        same &= done == bool(z["env.done"][t])
+    env = EvalEnv("folding", time_step=RL_LIMIT, device=device,
+                  **POLICY_GOLDEN_CFG)
+    env.reset()
+    for t in range(2):
+        obs, delta, _, _, _ = env.step(np.array([0, 0, -1.2e-3, 0, 0, 0]))
+        errs.append(_rl_obs_err(obs, obs64(env, env.state), z["eval.obs"][t],
+                                z["eval.obs64"][t]))
+        rels.append(rel(delta, z["eval.delta"][t]))
+    env = BatchedEnv(registry.make_scene("folding", **POLICY_GOLDEN_CFG), 2,
+                     time_limit=RL_LIMIT, device=device)
+    env.reset()
+    env.t[:] = RL_BATCHED_T0
+    a = np.zeros((RL_LIMIT, 2, 6))
+    a[:, 0, 0], a[:, 0, 2] = 3e-4, -1.8e-3
+    a[:, 1, 2], a[:, 1, 4] = -5e-4, 2e-3
+    for t in range(RL_LIMIT):
+        obs, rew, done = env.step(a[t])
+        o64 = np.stack([obs64(env, s) for s in env.states])
+        errs.append(_rl_obs_err(obs, o64, z["batched.obs"][t],
+                                z["batched.obs64"][t]))
+        rels.append(rel(rew, z["batched.rew"][t]))
+        same &= (np.array_equal(done, z["batched.done"][t])
+                 and np.array_equal(env.t, z["batched.t"][t]))
+    log(f"[rl-golden] folding table_n=4 f64: Env reset + {RL_LIMIT} steps, "
+        f"EvalEnv 2 steps, BatchedEnv(n=2) {RL_LIMIT} steps (an early stop, "
+        f"a time limit, both auto-reset) against the JAX runs: max |dobs| "
+        f"{max(errs):.3e} m (tol {RL_OBS_ATOL:.0e}), reward max rel err "
+        f"{max(rels):.3e} (tol {RL_REWARD_RTOL:.0e}), done flags and episode "
+        f"times equal: {same}")
+    if not (max(errs) <= RL_OBS_ATOL and max(rels) <= RL_REWARD_RTOL
+            and same):
+        raise AssertionError("the RL environments disagree with the JAX runs")
+
+
+class _Timed:
+    """Wraps obj.name with synchronized wall seconds per call."""
+
+    def __init__(self, obj, name):
+        self.secs = []
+        fn = getattr(obj, name)
+
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.secs.append(time.perf_counter() - t0)
+            return out
+
+        setattr(obj, name, wrapped)
+
+
+def rl_phase(device):
+    """[rl]: published folding in f32 (Newton capped at RL_NEWTON) on a
+    BatchedEnv of RL_ENVS, one update of each native trainer as `cli rl`
+    drives it on a card: parameters finite after each; the ms a policy
+    update takes beside the s a batched env step takes."""
+    from thinshelllab_torch.scenes import registry
+    from thinshelllab_torch.train.ppo import PPOTrainer
+    from thinshelllab_torch.train.recurrent_ppo import RecurrentPPOTrainer
+    from thinshelllab_torch.train.rl_env import BatchedEnv
+    from thinshelllab_torch.train.sac import SACTrainer
+
+    sc = registry.make_scene("folding", solver="auto", dtype=torch.float32,
+                             max_newton_iter=RL_NEWTON)
+    steps = RL_ENVS * RL_HORIZON
+    trainers = {
+        "ppo": lambda env: PPOTrainer(env, total_steps=steps,
+                                      horizon=RL_HORIZON, device=device,
+                                      dtype=torch.float32),
+        "sac": lambda env: SACTrainer(env, total_steps=steps, start_steps=2,
+                                      batch_size=4, device=device,
+                                      dtype=torch.float32),
+        "recurrent_ppo": lambda env: RecurrentPPOTrainer(
+            env, total_steps=steps, horizon=RL_HORIZON, device=device,
+            dtype=torch.float32),
+    }
+    for algo, make in trainers.items():
+        env = BatchedEnv(sc, RL_ENVS, time_limit=RL_HORIZON + 1,
+                         device=device)
+        tr = make(env)
+        t_env, t_upd = _Timed(env, "step"), _Timed(tr, "update")
+        tr.train(verbose=False)
+        params = [p for g in tr.__dict__.values()
+                  if isinstance(g, torch.optim.Optimizer)
+                  for grp in g.param_groups for p in grp["params"]]
+        finite = all(bool(torch.isfinite(p).all()) for p in params)
+        obs = env.reset()
+        a = tr.act(obs)
+        a = a[0] if isinstance(a, tuple) else a
+        log(f"[rl] {algo} folding f32 max_newton_iter {RL_NEWTON}, "
+            f"BatchedEnv(n={RL_ENVS}): {len(t_env.secs)} env steps "
+            f"{sum(t_env.secs) / len(t_env.secs):.3f} s each (s per "
+            f"batched step of {RL_ENVS}), {len(t_upd.secs)} policy updates "
+            f"{1e3 * sum(t_upd.secs) / len(t_upd.secs):.3f} ms each "
+            f"(first {1e3 * t_upd.secs[0]:.3f} ms); parameters finite: "
+            f"{finite}; |action| max {float(np.abs(a).max()):.3e}")
+        if not (finite and t_upd.secs and np.all(np.isfinite(a))):
+            raise AssertionError(f"[rl] {algo}: finite {finite}, "
+                                 f"{len(t_upd.secs)} updates")
 
 
 def store_inputs(spec, s0, params, dtype):
@@ -1669,9 +1942,10 @@ def minres_vs_dense(device):
 
 
 def cg_trajopt_phase(device):
-    """[cg-trajopt]: one f32 TrajOptDriver iteration under solver="cg" on
-    folding (pull CG, MINRES) and balancing (351 offsets), and the f32
-    folding gradient against an f64 dense backward on its tape."""
+    """[cg-trajopt]: one f32 TrajOptDriver iteration under solver="cg"
+    (Newton capped at TRAJOPT_NEWTON) on folding (pull CG, MINRES) and
+    balancing (351 offsets), and the f32 folding gradient against an f64
+    dense backward on its tape."""
     from thinshelllab_torch.engine import adjoint
     from thinshelllab_torch.ops import dia_spmv as K
     from thinshelllab_torch.scenes import registry
@@ -1679,7 +1953,8 @@ def cg_trajopt_phase(device):
 
     for name, T in CG_TRAJOPT_T.items():
         sc = scene_state(name, registry.make_scene(
-            name, solver="cg", dtype=torch.float32), device)
+            name, solver="cg", dtype=torch.float32,
+            max_newton_iter=TRAJOPT_NEWTON), device)
         drv = TrajOptDriver(sc, T, lr=1e-3, max_dist=0.015, device=device)
         if name == "folding":
             drv.agent.traj[:, :, 2] = CG_FOLD_DZ * np.arange(T)[:, None]
@@ -2080,6 +2355,17 @@ def main():
     timed("scenes", scenes_phase, device)
     timed("scenes-trajopt", scenes_trajopt_phase, device)
     timed("dp", dp_phase, device)
+    timed("cmaes-golden", cmaes_golden_check, device)
+    timed("cmaes", cmaes_phase, device, "folding", solver="auto")
+    launches_cmaes_cg, _ = timed("cmaes-cg", cmaes_phase, device,
+                                 CMAES_CG_SCENE, solver="cg",
+                                 max_newton_iter=CG_NEWTON)
+    for name, n in launches_cmaes_cg.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"CMA-ES generation under cg ({n})")
+    timed("rl-golden", rl_golden_check, device)
+    timed("rl", rl_phase, device)
 
     cg_k = timed("cg-kernels", cg_kernel_checks, device)
     launches_cg = timed("cg-scenes", cg_scenes_phase, device)
@@ -2115,6 +2401,7 @@ def main():
              launches_full_newton=launches_fn[name],
              launches_cg_scenes=launches_cg[name],
              launches_bench_40k=launches_40k[name],
+             launches_cmaes_cg=launches_cmaes_cg[name],
              plans=plans(name), **kres[name])
         for name in ("dia_spmv", "dia_precond")]}))
     print(smi)

@@ -18,10 +18,15 @@ the full bench scene at a perturbed state. The dense path of small scenes
 (no hand kernel: cuSOLVER's batched eigh, the scatter-add assembly with
 atomics, the LU solve) is held against its own CPU results in f64 on the
 small folding scene, and one step of every other task scene at its
-published size against the same step on the CPU.
+published size against the same step on the CPU. The policy-search
+layers: one CMAESDriver generation on forming under solver="cg" (finite,
+both kernels launched) and one PPO update in f64 against the same update
+on the CPU.
 """
 import dataclasses
+import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -509,3 +514,91 @@ def test_hash_broadphase_matches_cpu(cuda):
             q - torch.einsum("ck,cki->ci", w, p[t]), dim=1)[m]
 
     assert float((dist(t1, w1) - dist(t2, w2)).abs().max()) <= 1.01e-5
+
+
+@pytest.mark.cuda
+def test_cmaes_generation_on_forming_under_cg(cuda):
+    """One CMAESDriver generation (pop 2, T=2) on forming at its published
+    size under solver="cg" in f32, Newton capped at 5: finite rewards, and
+    the rollouts went through both kernels."""
+    from thinshelllab_torch.scenes import registry
+    from thinshelllab_torch.train.cmaes import CMAESDriver
+
+    sc = registry.make_scene("forming", solver="cg", dtype=torch.float32,
+                             max_newton_iter=5)
+    drv = CMAESDriver(sc, 2, 2, pop_size=2, seed=0, device=cuda)
+    K.reset_launches()
+    info = drv.generation()
+    launches = dict(K.LAUNCHES)
+    print(f"rewards {info['rewards']}, launches {launches}")
+    assert np.all(np.isfinite(info["rewards"]))
+    assert min(launches.values()) > 0, launches
+
+
+@pytest.mark.cuda
+def test_ppo_update_matches_cpu(cuda):
+    """One PPOTrainer update in f64 on the card against the same update on
+    the CPU (the same seeded weights and batch), every parameter within
+    1e-10."""
+    from thinshelllab_torch.train.ppo import PPOTrainer
+
+    class Stub:
+        n, scene = 3, types.SimpleNamespace(n_part=1)
+
+        def reset(self):
+            return np.zeros((3, 40), np.float32)
+
+    rng = np.random.default_rng(0)
+    B = 32
+    batch = (rng.normal(size=(B, 40)).astype(np.float32),
+             rng.normal(size=(B, 6)), rng.normal(size=B),
+             rng.normal(size=B), rng.normal(size=B) - 5.0)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        tr = PPOTrainer(Stub(), hidden=64, seed=1, device=dev,
+                        dtype=torch.float64)
+        tr.update(batch)
+        tr.update(batch)
+        out[dev.type] = [p.detach().cpu() for p in tr.optimizer.param_groups[
+            0]["params"]]
+    err = max(float((a - b).abs().max())
+              for a, b in zip(out["cuda"], out["cpu"]))
+    print(f"max |d param| card vs CPU {err:.3e}")
+    assert err <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["ppo", "sac", "recurrent_ppo"])
+def test_trainers_train_on_the_card(cuda, algo):
+    """Each native trainer's training loop on the card (a stub env whose
+    observations come back as numpy, as BatchedEnv's do): finite
+    parameters and actions after a few updates."""
+    from thinshelllab_torch.train.ppo import PPOTrainer
+    from thinshelllab_torch.train.recurrent_ppo import RecurrentPPOTrainer
+    from thinshelllab_torch.train.sac import SACTrainer
+
+    class Stub:
+        n, scene = 4, types.SimpleNamespace(n_part=1)
+
+        def reset(self):
+            return np.zeros((4, 7), np.float32)
+
+        def step(self, act):
+            return (np.ones((4, 7), np.float32),
+                    np.asarray(act)[:, 0] * 1e3, np.array([0, 1, 0, 1],
+                                                         bool))
+
+    kw = {"sac": dict(start_steps=8, batch_size=8),
+          "ppo": dict(horizon=4), "recurrent_ppo": dict(horizon=4)}[algo]
+    make = {"ppo": PPOTrainer, "sac": SACTrainer,
+            "recurrent_ppo": RecurrentPPOTrainer}[algo]
+    tr = make(Stub(), total_steps=32, hidden=16, device=cuda, **kw)
+    tr.train(verbose=False)
+    params = [p for v in vars(tr).values()
+              if isinstance(v, torch.optim.Optimizer)
+              for g in v.param_groups for p in g["params"]]
+    assert params and all(p.device.type == "cuda" for p in params)
+    assert all(bool(torch.isfinite(p).all()) for p in params)
+    a = tr.act(Stub().reset())
+    a = a[0] if isinstance(a, tuple) else a
+    assert a.shape == (4, 6) and np.all(np.isfinite(a))

@@ -55,6 +55,12 @@ class TrajAgent:
         dr = self.traj[frame, j, 3:6] - self.traj[frame - 1, j, 3:6]
         return np.linalg.norm(dp) + np.linalg.norm(dr) * max_dist
 
+    def apply_grad(self, update_fn):
+        """traj <- update_fn(traj): the table goes in as a float64 tensor on
+        the agent's device and comes back to the host."""
+        new = update_fn(torch.as_tensor(self.traj, device=self.device))
+        self.traj = new.detach().cpu().numpy().astype(np.float64, copy=True)
+
     # ----------------------------------------------------- warm starts
     # (reference traj_opt_single.py:50-109)
 

@@ -1,25 +1,28 @@
 """Command-line driver (counterpart of `thinshelllab_tpu/cli.py`; reference
-training/*.py + code/scripts/*.sh). The port has the `trajopt` and `dp`
-subcommands:
+training/*.py + code/scripts/*.sh). The port has the `trajopt`, `cmaes`,
+`dp` and `rl` subcommands:
 
   python -m thinshelllab_torch.cli trajopt --env folding --iter 10 --tot_step 50
+  python -m thinshelllab_torch.cli cmaes   --env lifting --pop_size 8 --iter 15
   python -m thinshelllab_torch.cli dp      --env bouncing --iter 20 --lr 10
+  python -m thinshelllab_torch.cli rl      --env folding --timesteps 100000
 
-Both run on the CUDA card (`--platform gpu`, the default; no card raises)
+All run on the CUDA card (`--platform gpu`, the default; no card raises)
 with the JAX CLI's accelerator defaults: solver 'auto' (dense below 6000
 DOF, CG above) and float32 unless --f64. `--solver cg` takes the iterative
 path on any scene: CG on the DIA plan with the CUDA kernels and the
 GMRES adjoint where the cloth is wide enough for a plan, CG on the pull
 operator and the MINRES adjoint where it is not (folding). `--platform cpu`
 takes the JAX CLI's CPU defaults: the dense solver and the scene's own
-dtype (float64) unless --f32. The other subcommands (cmaes, rl, render,
-bench) are not ported yet.
+dtype (float64) unless --f32. The `render` and `bench` subcommands are
+not ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import os
 
+import numpy as np
 import torch
 
 
@@ -173,6 +176,134 @@ def cmd_dp(args):
               f"param {info['param']:.4f} grad {info['grad']:.3g}", flush=True)
 
 
+def cmd_cmaes(args):
+    from .train.cmaes import CMAESDriver
+    from .utils.plotting import save_reward_curve
+
+    device = _device(args)
+    scene = _make_scene(args, device)
+    ls = _default_load_state(args)
+    if ls:
+        _load_scene_state(scene, ls, device)
+    skip = 5 if args.env == "interact" else 0
+    drv = CMAESDriver(scene, args.tot_step, args.abs_step,
+                      pop_size=args.pop_size, sigma=args.sigma,
+                      max_dist=args.max_dist, skip_first=skip,
+                      reward_name=args.reward_name or "default",
+                      device=device)
+    save_dir = args.save_dir or f"data/cmaes_traj_{args.env}"
+    os.makedirs(save_dir, exist_ok=True)
+    for g in range(args.iter):
+        info = drv.generation()
+        print(f"gen {g}: best {info['best_reward']:.4f} "
+              f"mean {info['gen_mean']:.4f}", flush=True)
+        drv.best_agent().save(os.path.join(save_dir, f"traj_{g}.npy"))
+        np.save(os.path.join(save_dir, "plot_data.npy"),
+                np.asarray(drv.history))
+        # reference parity: reward-curve PNG every generation
+        # (run_cmaes_all.py:182-184)
+        save_reward_curve(os.path.join(save_dir, "plot.png"), drv.history)
+
+
+def _eval_policy(trainer, env, n_steps):
+    """One deterministic episode on the batched env; the summed reward of
+    env 0 (the EvalCallback measurement, reference training_env.py:86)."""
+    obs = env.reset()
+    total = 0.0
+    carry = None
+    recurrent = hasattr(trainer, "hidden")
+    for _ in range(n_steps):
+        if recurrent:  # recurrent policies carry hidden state
+            act, carry = trainer.act(obs, carry)
+        else:
+            act = trainer.act(obs)
+        obs, rew, done = env.step(act)
+        total += float(rew[0])
+        if bool(done[0]):
+            break
+    return total
+
+
+def cmd_rl(args):
+    """RL training (reference training/training_env.py:54-96): algo in
+    {ppo, sac, recurrent_ppo}, n_envs environments, EvalCallback-style
+    best-model checkpointing into checkpoints/<env>/.
+
+    Uses stable-baselines3 when it imports (the reference's dependency);
+    otherwise the native trainers (train/{ppo,sac,recurrent_ppo}.py) over
+    a BatchedEnv, with the policy in the scene's dtype."""
+    device = _device(args)
+    scene = _make_scene(args, device)
+    save_dir = args.save_dir or f"checkpoints/{args.env}"
+    os.makedirs(save_dir, exist_ok=True)
+    algo = args.algo.lower()
+    try:
+        import stable_baselines3  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        _sb3_train(args, scene, algo, save_dir, device)
+        return
+
+    from .train.ppo import PPOTrainer
+    from .train.recurrent_ppo import RecurrentPPOTrainer
+    from .train.rl_env import BatchedEnv
+    from .train.sac import SACTrainer
+
+    trainers = {"ppo": PPOTrainer, "sac": SACTrainer,
+                "recurrent_ppo": RecurrentPPOTrainer}
+    if algo not in trainers:
+        raise KeyError(f"unknown --algo '{algo}'; available: "
+                       f"{sorted(trainers)}")
+    batched = BatchedEnv(scene, args.n_envs, time_limit=args.tot_step,
+                         reward_name=args.reward_name, device=device)
+    kwargs = {} if algo == "sac" else {"horizon": args.horizon}
+    trainer = trainers[algo](batched, total_steps=args.timesteps,
+                             device=device, dtype=scene.spec.dtype, **kwargs)
+
+    best = {"reward": -float("inf")}
+
+    def eval_callback(steps_done):
+        r = _eval_policy(trainer, batched, args.tot_step)
+        if r > best["reward"]:
+            best["reward"] = r
+            trainer.save(os.path.join(save_dir, "best_model.pkl"))
+        print(f"eval @ {steps_done}: return {r:.4f} "
+              f"(best {best['reward']:.4f})", flush=True)
+
+    trainer.train(callback=eval_callback)
+    trainer.save(os.path.join(save_dir, "final_model.pkl"))
+    print(f"saved models to {save_dir}")
+
+
+def _sb3_train(args, scene, algo, save_dir, device):
+    """stable-baselines3 path, matching reference training_env.py:54-96."""
+    from stable_baselines3 import PPO, SAC
+    from stable_baselines3.common.callbacks import EvalCallback
+
+    from .train.rl_env import Env, make_sb3_vec_env
+
+    kwargs = dict(time_step=args.tot_step, reward_name=args.reward_name,
+                  scene=scene, device=device)
+    venv = make_sb3_vec_env(args.env, args.n_envs, **kwargs)
+    eval_env = Env(sys_name=args.env, **kwargs)
+    cb = EvalCallback(eval_env, best_model_save_path=save_dir,
+                      eval_freq=max(args.timesteps // 20 // args.n_envs, 1),
+                      deterministic=True)
+    if algo == "ppo":
+        model = PPO("MlpPolicy", venv, verbose=1)
+    elif algo == "sac":
+        model = SAC("MlpPolicy", venv, verbose=1)
+    elif algo == "recurrent_ppo":
+        from sb3_contrib import RecurrentPPO
+
+        model = RecurrentPPO("MlpLstmPolicy", venv, verbose=1)
+    else:
+        raise KeyError(f"unknown --algo '{algo}'")
+    model.learn(total_timesteps=args.timesteps, callback=cb)
+    model.save(os.path.join(save_dir, "final_model"))
+
+
 def build_parser():
     ap = argparse.ArgumentParser("thinshelllab_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -203,6 +334,24 @@ def build_parser():
                         "loop either way")
     p.set_defaults(fn=cmd_trajopt)
 
+    p = sub.add_parser("cmaes")
+    _add_common(p)
+    p.add_argument("--iter", type=int, default=10)
+    p.add_argument("--pop_size", type=int, default=8)
+    p.add_argument("--abs_step", type=int, default=10)
+    p.add_argument("--sigma", type=float, default=1.0)
+    p.add_argument("--max_dist", type=float, default=0.002,
+                   help="kept for the reference's interface: genomes are "
+                        "limited at 0.015 whatever it says, as in the JAX "
+                        "package (ROADMAP.md §3)")
+    p.add_argument("--reward_name", type=str, default=None,
+                   help="scene reward variant (reference run_cmaes_all.py)")
+    p.add_argument("--load_state", type=str, default=None,
+                   help="npz full-state warm start; balancing/balance/"
+                        "throwing default to the bundled pre-grasped state, "
+                        "'none' starts cold")
+    p.set_defaults(fn=cmd_cmaes)
+
     p = sub.add_parser("dp")
     _add_common(p)
     p.add_argument("--iter", type=int, default=10)
@@ -220,6 +369,18 @@ def build_parser():
     p.add_argument("--cmaes_scale", type=float, default=1.0,
                    help="parameter = base + sample * scale")
     p.set_defaults(fn=cmd_dp)
+
+    p = sub.add_parser("rl")
+    _add_common(p)
+    p.add_argument("--timesteps", type=int, default=100000)
+    p.add_argument("--n_envs", type=int, default=8)
+    p.add_argument("--algo", type=str, default="ppo",
+                   help="ppo|sac|recurrent_ppo (training_env.py algo arg)")
+    p.add_argument("--reward_name", type=str, default=None,
+                   help="scene reward variant (reference RL_env.py:198)")
+    p.add_argument("--horizon", type=int, default=64,
+                   help="on-policy rollout chunk length (ppo/recurrent_ppo)")
+    p.set_defaults(fn=cmd_rl)
     return ap
 
 

@@ -6,7 +6,10 @@ their nested dataclasses) into the port's dataclass of the same name:
 numpy leaves are copied, static fields kept, the spec's dtype and SpMV
 route renamed to the port's. `traj_agent_from_reference` and
 `adam_state_from_reference` carry a trajectory optimisation's waypoint
-table and optimizer state, `cmaes_from_reference` a CMA-ES strategy.
+table and optimizer state, `cmaes_from_reference` a CMA-ES strategy,
+`cmaes_driver_from_reference` a whole CMA-ES driver, and
+`ppo_from_reference`, `sac_from_reference` and `rppo_from_reference` an
+RL trainer's parameters with optax's Adam moments and count.
 `tape_from_entries` rebuilds a JAX tape kept flat in a golden file, and
 `golden_grad_errors` measures an adjoint's gradients against the ones kept
 beside it. It reads attributes only, so this module imports no JAX; the
@@ -163,3 +166,115 @@ def cmaes_from_reference(es):
     out.rng = np.random.default_rng()
     out.rng.bit_generator.state = es.rng.bit_generator.state
     return out
+
+
+def cmaes_driver_from_reference(drv, scene, device="cpu"):
+    """The port's CMAESDriver on the port's `scene` (its rewards are the
+    port's own) with a JAX `CMAESDriver`'s settings, whole strategy state
+    (cmaes_from_reference) and reward history."""
+    from ..train.cmaes import CMAESDriver
+
+    out = CMAESDriver(scene, drv.tot_timestep, drv.abs_step,
+                      pop_size=drv.pop_size, sigma=drv.sigma,
+                      reward_name=drv.reward_name, max_dist=drv.max_dist,
+                      seed=drv.seed, skip_first=drv.skip_first,
+                      device=device)
+    out.es = cmaes_from_reference(drv.es)
+    out.history = list(drv.history)
+    return out
+
+
+def _adam_moments(opt_state):
+    """(count, mu, nu) of an optax.adam state: the ScaleByAdamState in
+    its chain."""
+    for s in opt_state:
+        if hasattr(s, "mu") and hasattr(s, "nu"):
+            return int(np.asarray(s.count)), s.mu, s.nu
+    raise TypeError("no Adam moments in this optimizer state")
+
+
+def _mlp_leaves(mlp, layers):
+    """(parameter, array in the parameter's layout) of each Linear of a
+    port MLP against the JAX [(W (in, out), b), ...] tree."""
+    out = []
+    for lin, (w, b) in zip(mlp.layers, layers, strict=True):
+        out += [(lin.weight, np.asarray(w).T), (lin.bias, np.asarray(b))]
+    return out
+
+
+def _lstm_leaves(lstm, arrays):
+    wi, wh, b = (np.asarray(a) for a in arrays)
+    return [(lstm.wi, wi.T), (lstm.wh, wh.T), (lstm.b, b)]
+
+
+def _load_params(leaves):
+    with torch.no_grad():
+        for p, a in leaves:
+            p.copy_(torch.tensor(np.asarray(a), dtype=p.dtype))
+
+
+def _load_adam(optimizer, params, mu_leaves, nu_leaves, count):
+    """torch.optim.Adam state of `params` from optax's moments (each
+    already in its parameter's layout) and step count."""
+    for p, (_, m), (_, v) in zip(params, mu_leaves, nu_leaves, strict=True):
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": torch.tensor(np.asarray(m), dtype=p.dtype,
+                                    device=p.device),
+            "exp_avg_sq": torch.tensor(np.asarray(v), dtype=p.dtype,
+                                       device=p.device),
+        }
+
+
+def _carry(optimizer, leaves_fn, params_tree, opt_state):
+    """Load a parameter tree and its optax Adam state into the port."""
+    leaves = leaves_fn(params_tree)
+    _load_params(leaves)
+    count, mu, nu = _adam_moments(opt_state)
+    _load_adam(optimizer, [p for p, _ in leaves], leaves_fn(mu),
+               leaves_fn(nu), count)
+
+
+def ppo_from_reference(state, trainer):
+    """Load a JAX `PPOState` (pi, vf, log_std and optax.adam's state) into
+    a port PPOTrainer of the same sizes; returns the trainer."""
+    def leaves(tree):
+        pi, vf, log_std = tree
+        return (_mlp_leaves(trainer.pi, pi) + _mlp_leaves(trainer.vf, vf)
+                + [(trainer.log_std, np.asarray(log_std))])
+
+    _carry(trainer.optimizer, leaves, (state.pi, state.vf, state.log_std),
+           state.opt_state)
+    return trainer
+
+
+def sac_from_reference(state, trainer):
+    """Load a JAX `SACState` (actor, twin critics, their targets, the
+    temperature and the three optax.adam states) into a port SACTrainer
+    of the same sizes; returns the trainer."""
+    _carry(trainer.actor_opt, lambda a: _mlp_leaves(trainer.actor, a),
+           state.actor, state.actor_opt)
+    _carry(trainer.q_opt, lambda q: (_mlp_leaves(trainer.q1, q[0])
+                                     + _mlp_leaves(trainer.q2, q[1])),
+           (state.q1, state.q2), state.q_opt)
+    _carry(trainer.alpha_opt,
+           lambda a: [(trainer.log_alpha, np.asarray(a))],
+           state.log_alpha, state.alpha_opt)
+    _load_params(_mlp_leaves(trainer.q1_targ, state.q1_targ)
+                 + _mlp_leaves(trainer.q2_targ, state.q2_targ))
+    return trainer
+
+
+def rppo_from_reference(state, trainer):
+    """Load a JAX `RPPOState` (LSTM, pi, vf, log_std and optax.adam's
+    state) into a port RecurrentPPOTrainer of the same sizes; returns the
+    trainer."""
+    def leaves(tree):
+        lstm, pi, vf, log_std = tree
+        return (_lstm_leaves(trainer.lstm, lstm)
+                + _mlp_leaves(trainer.pi, pi) + _mlp_leaves(trainer.vf, vf)
+                + [(trainer.log_std, np.asarray(log_std))])
+
+    _carry(trainer.optimizer, leaves,
+           (state.lstm, state.pi, state.vf, state.log_std), state.opt_state)
+    return trainer

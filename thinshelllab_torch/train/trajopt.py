@@ -19,13 +19,15 @@ from ..agent.traj_opt import TrajAgent
 from ..engine import adjoint, stepper
 from ..optim.adam import Adam
 from ..scenes.base import TaskScene, resolve_device
+from ..utils.plotting import save_reward_curve
 
 
 class TrajOptDriver:
     """device: where the scene runs (default the CUDA card; no card
     raises). fwd_chunk: the JAX package's rollout segments, kept for its
-    API (stepper.simulate_chunked, which is simulate() in the port). The
-    reward-curve PNG waits for the render slice."""
+    API (stepper.simulate_chunked, which is simulate() in the port). With
+    a save_dir, every iteration writes plot_data.npy and the reward curve
+    plot.png, and a new best writes best_traj.npy."""
 
     def __init__(
         self,
@@ -125,6 +127,10 @@ class TrajOptDriver:
             os.makedirs(self.save_dir, exist_ok=True)
             np.save(os.path.join(self.save_dir, "plot_data.npy"),
                     np.asarray(self.history))
+            # reference parity: reward-curve PNG refreshed every iteration
+            # (trajopt_folding.py:141-142)
+            save_reward_curve(os.path.join(self.save_dir, "plot.png"),
+                              self.history)
         if render_cb is not None:
             render_cb(buffers)
         return {
