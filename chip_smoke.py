@@ -67,6 +67,20 @@ at the end of the process, holds the self-contact hairpin on the card
 against the CPU and the JAX run (tests/data/hairpin_golden.npz), and counts
 what cuSOLVER's batched eigh returns on its batches as they stand.
 
+Right after the early [self-contact] (where torch.profiler's traces are
+still complete) come the render and utility phases: [render] runs `cli
+render` on forming under cg (both kernels in every CG solve) with the
+Preview and the LuisaScript options and `cli trajopt --render_every 1`,
+holding the GIF's frames against the PNGs, the card's preview image and
+frame 0's Luisa script and OBJ files against the CPU port's; [debug]
+holds `check_differential` and `contact_forces` at a lifting state
+(tests/data/debug_golden.npz) against the CPU port; [bend-batch] runs the
+full bench with the batch hinge form against the default one, and the
+small f64 bench against the JAX run (tests/data/bend_batch_golden.npz);
+[profile-trace] writes a `utils.profiling.device_trace` of one bench
+step, which must name both kernels; [native] holds the native helper's
+cloth tables, hinges and cube lattices against the numpy paths.
+
     python3 chip_smoke.py
 
 Prints one line per phase, then a JSON line of per-kernel results, the
@@ -2236,6 +2250,328 @@ def self_contact_phase(device, when):
         raise AssertionError("the hairpin on the card disagrees")
 
 
+# --------------------------------------------------------------------------
+# render, the debug and host utilities, the native helper, the batch hinges
+# --------------------------------------------------------------------------
+
+RENDER_SCENE = "forming"
+RENDER_FRAMES = 3
+RENDER_NEWTON = 5  # f32 Newton stalls at any cap (ROADMAP.md §3)
+RENDER_OUT = os.path.join(ROOT, "imgs", "smoke_render")
+GOLDEN_DEBUG = os.path.join(ROOT, "tests", "data", "debug_golden.npz")
+GOLDEN_BEND = os.path.join(ROOT, "tests", "data", "bend_batch_golden.npz")
+# check_differential on the card against the CPU port, f64: the energy
+# differences (~2e-5 J of energies ~1 J, summed in another order) relative;
+# the two error ratios, themselves relative errors of a cancellation, to
+# 1e-9 absolute (the CPU port and JAX differ by 1e-14 absolute there)
+DEBUG_DE_RTOL = 1e-9
+DEBUG_RATIO_ATOL = 1e-9
+FORCE_RTOL = 1e-12  # contact forces, of the largest (~0.3 N)
+# the two hinge forms on the small f64 bench, card: the same arithmetic
+BEND_F64_ATOL = 1e-12
+BEND_JAX_ATOL = 1e-9  # against the JAX golden, as tests/test_torch_native_bend
+BEND_SMALL_CFG = dict(cloth_N=8, table_n=4, solver="dense", max_newton_iter=4)
+BEND_SMALL_DZ = -2e-3
+BEND_T = 2
+
+
+def _render_cli(args, out):
+    """cli.main(args + --save_dir out) on the card with the DIA launches
+    counted: (launches, seconds)."""
+    from thinshelllab_torch import cli
+    from thinshelllab_torch.ops import dia_spmv as K
+
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(args + ["--save_dir", out])
+    torch.cuda.synchronize()
+    return dict(K.LAUNCHES), time.perf_counter() - t0
+
+
+def render_phase(device):
+    """[render]: `cli render` on forming under cg (both kernels in every
+    CG solve) with Preview and with LuisaScript, and `cli trajopt
+    --render_every 1`. Checks the PNG frames against the GIF's decoded
+    frames, frame 0's Luisa script and OBJ files against the CPU port's
+    from the same positions, and the card's preview image against the
+    CPU's. Returns the Preview run's DIA launches."""
+    import shutil
+
+    from thinshelllab_torch.render import raster
+    from thinshelllab_torch.render.engine import Renderer
+    from thinshelllab_torch.scenes import registry
+
+    shutil.rmtree(RENDER_OUT, ignore_errors=True)
+    common = ["--env", RENDER_SCENE, "--solver", "cg", "--max_newton_iter",
+              str(RENDER_NEWTON)]
+    d_prev = os.path.join(RENDER_OUT, "preview")
+    launches, secs = _render_cli(["render", *common, "--frames",
+                                  str(RENDER_FRAMES)], d_prev)
+    names = [f"{t}.png" for t in range(RENDER_FRAMES + 1)]
+    if sorted(os.listdir(d_prev)) != sorted(names + ["GIF_0.gif"]):
+        raise AssertionError(f"[render] wrote {sorted(os.listdir(d_prev))}")
+    pngs = [raster.read_png(os.path.join(d_prev, n)) for n in names]
+    frames, delays = raster.read_gif(os.path.join(d_prev, "GIF_0.gif"))
+    gif_ok = len(frames) == len(pngs) and all(
+        np.array_equal(f, p) for f, p in zip(frames, pngs))
+    drawn = [int((p != 255).any(axis=2).sum()) for p in pngs]
+    log(f"[render] cli render --env {RENDER_SCENE} --solver cg --frames "
+        f"{RENDER_FRAMES} --max_newton_iter {RENDER_NEWTON} (f32) on the "
+        f"card: {secs:.3f} s, DIA launches {launches}; {len(pngs)} PNG "
+        f"frames {pngs[0].shape}, {drawn} pixels drawn; GIF frames equal "
+        f"to the PNGs: {gif_ok}, delays {delays} (1/100 s)")
+    if not (gif_ok and min(drawn) > 0):
+        raise AssertionError("[render] the GIF does not hold the PNG frames")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"[render] kernel {name} was not launched")
+
+    # the raster alone: the card's image against the CPU's, and its time
+    sc = registry.make_scene(RENDER_SCENE, solver="cg", dtype=torch.float32)
+    _, s0, _ = sc.to(device)
+    r = Renderer(sc, RENDER_SCENE, save_dir=os.path.join(RENDER_OUT, "raster"))
+    same = torch.equal(r.backend.image(s0.pos).cpu(),
+                       r.backend.image(s0.pos.cpu()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(RENDER_FRAMES + 1):
+        r.render(str(t), pos=s0.pos)
+    t1 = time.perf_counter()
+    r.end_rendering(0)
+    t2 = time.perf_counter()
+    log(f"[render] preview raster on the card: {(t1 - t0) * 1e3 / (RENDER_FRAMES + 1):.1f} ms "
+        f"a frame (projection, fill, PNG), GIF of {RENDER_FRAMES + 1} "
+        f"frames {(t2 - t1) * 1e3:.1f} ms; card image equal to the CPU's "
+        f"pixel for pixel: {same}")
+    if not same:
+        raise AssertionError("[render] the card's preview differs from the "
+                             "CPU's")
+
+    d_lu = os.path.join(RENDER_OUT, "luisa")
+    launches_lu, secs_lu = _render_cli(
+        ["render", *common, "--frames", str(RENDER_FRAMES),
+         "--render_option", "LuisaScript"], d_lu)
+    want = {f"scene_{t}.luisa" for t in range(RENDER_FRAMES + 1)} | {
+        f"models_{t}" for t in range(RENDER_FRAMES + 1)}
+    files = set(os.listdir(d_lu))
+    n_obj = [len(os.listdir(os.path.join(d_lu, f"models_{t}")))
+             for t in range(RENDER_FRAMES + 1)] if want <= files else []
+    # frame 0 = the scene's f32 initial positions: the CPU port writes the
+    # same script and OBJ files from them
+    d_cpu = os.path.join(RENDER_OUT, "luisa_cpu")
+    rc = Renderer(sc, RENDER_SCENE, option="LuisaScript", save_dir=d_cpu)
+    rc.render("0", pos=sc.to("cpu", torch.float32)[1].pos)
+    with open(os.path.join(d_lu, "scene_0.luisa")) as f:
+        card_text = f.read().replace(d_lu, "<save>")
+    with open(os.path.join(d_cpu, "scene_0.luisa")) as f:
+        cpu_text = f.read().replace(d_cpu, "<save>")
+    objs = sorted(os.listdir(os.path.join(d_cpu, "models_0")))
+    objs_same = objs == sorted(os.listdir(os.path.join(d_lu, "models_0")))
+    for name in objs if objs_same else ():
+        with open(os.path.join(d_lu, "models_0", name), "rb") as a, \
+                open(os.path.join(d_cpu, "models_0", name), "rb") as b:
+            objs_same &= a.read() == b.read()
+    log(f"[render] cli render --render_option LuisaScript: {secs_lu:.3f} s, "
+        f"DIA launches {launches_lu}; scripts and model directories "
+        f"{sorted(files & want) == sorted(want)}, OBJ files a frame {n_obj}; "
+        f"frame 0's script equal to the CPU port's: "
+        f"{card_text == cpu_text}, its OBJ files: {objs_same}")
+    if not (want <= files and min(n_obj) > 0 and card_text == cpu_text
+            and objs_same):
+        raise AssertionError("[render] the LuisaScript export is wrong")
+
+    d_tr = os.path.join(RENDER_OUT, "trajopt")
+    launches_tr, secs_tr = _render_cli(
+        ["trajopt", *common, "--tot_step", "2", "--iter", "1",
+         "--render_every", "1"], d_tr)
+    files = set(os.listdir(d_tr))
+    log(f"[render] cli trajopt --env {RENDER_SCENE} --solver cg --tot_step 2 "
+        f"--iter 1 --render_every 1: {secs_tr:.3f} s, DIA launches "
+        f"{launches_tr}; wrote {sorted(files)}")
+    if not ({"0.png", "1.png", "GIF_0.gif"} <= files
+            and min(launches_tr.values()) > 0):
+        raise AssertionError("[render] trajopt --render_every did not render")
+    return launches
+
+
+def debug_phase(device):
+    """[debug]: check_differential and contact_forces at the lifting state
+    of debug_golden.npz (scenes_golden's lifting.pos[-1] moved off
+    equilibrium by seeded 2e-4 m noise), f64, on the card against the CPU
+    port."""
+    from thinshelllab_torch.engine.debug import check_differential
+    from thinshelllab_torch.render.debug_plots import contact_forces
+    from thinshelllab_torch.scenes import registry
+
+    gold = np.load(GOLDEN_DEBUG)
+    sc = registry.make_scene("lifting")
+    out, forces, secs = {}, {}, {}
+    for who, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        spec, s0, params = sc.to(dev, torch.float64)
+        st = s0.replace(pos=torch.as_tensor(gold["pos"], device=dev))
+        t0 = time.perf_counter()
+        out[who] = check_differential(spec, params, st, verbose=False)
+        forces[who] = contact_forces(spec, params, st).cpu().numpy()
+        secs[who] = time.perf_counter() - t0
+    card, cpu = out["card"], out["cpu"]
+    d_rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k])
+             for k in ("dE_fd", "dE_analytic")}
+    d_abs = {k: abs(card[k] - cpu[k]) for k in ("grad_rel_err",
+                                                "hess_rel_err")}
+    big = float(np.abs(forces["cpu"]).max())
+    e_f = float(np.abs(forces["card"] - forces["cpu"]).max()) / big
+    nz = int(np.count_nonzero(np.abs(forces["card"]).max(axis=1)))
+    log(f"[debug] lifting f64, check_differential on the card "
+        f"({secs['card']:.2f} s with contact_forces; CPU {secs['cpu']:.2f} s):"
+        f" {card}; against the CPU port: dE relative "
+        f"{ {k: f'{v:.2e}' for k, v in d_rel.items()} }, error ratios "
+        f"absolute { {k: f'{v:.2e}' for k, v in d_abs.items()} }; "
+        f"contact_forces: {nz} vertices with a force, the largest "
+        f"{big:.6f} N, card vs CPU {e_f:.2e} of it (tol {FORCE_RTOL:.0e})")
+    if not (card["grad_rel_err"] < 1e-4 and card["hess_rel_err"] < 1e-3
+            and max(d_rel.values()) <= DEBUG_DE_RTOL
+            and max(d_abs.values()) <= DEBUG_RATIO_ATOL
+            and e_f <= FORCE_RTOL and nz > 0):
+        raise AssertionError("[debug] check_differential or contact_forces "
+                             "on the card disagrees")
+
+
+def bend_batch_phase(device):
+    """[bend-batch]: the full bench (cloth_N=70, f32) forward with
+    bend_batch=True against the default hinge form (in turns: default,
+    batch, batch, default), T=2, and the adjoint; the small f64 bench with
+    both forms on the card against each other and the JAX golden."""
+    from thinshelllab_torch.engine import stepper
+    from thinshelllab_torch.ops import dia_spmv as K
+    from thinshelllab_torch.scenes import bench_scene
+
+    sc = bench_scene.make(cloth_N=70, table_n=12, dtype=torch.float32,
+                          hess_refresh=8, fwd_tol=1e-3, max_newton_iter=8)
+    spec, s0, params = sc.to(device, torch.float32)
+    spec_b = spec.replace(bend_batch=True)
+    runs = {}
+    K.reset_launches()
+    for sp, tag in ((spec, "default"), (spec_b, "batch"), (spec_b, "batch"),
+                    (spec, "default")):
+        buf, stats, secs = rollout(sp, s0, params, device, T=BEND_T)
+        runs.setdefault(tag, []).append((buf, stats, secs))
+    launches = dict(K.LAUNCHES)
+    res, bsecs = backward(sc, spec_b, params, runs["batch"][0][0])
+    pos_b, pos_d = runs["batch"][0][0]["pos"], runs["default"][0][0]["pos"]
+    cloth_nv = (70 + 1) ** 2
+    disp = float((pos_d[-1, :cloth_nv] - pos_d[0, :cloth_nv]).abs().max())
+    rel = float((pos_b - pos_d).abs().max()) / disp
+    finite = bool(torch.isfinite(pos_b).all()) and bool(
+        torch.isfinite(res.gripper_grad).all())
+    rate = {k: [BEND_T / r[2] for r in v] for k, v in runs.items()}
+    log(f"[bend-batch] bench cloth_N=70 f32 T={BEND_T}: steps/s default "
+        f"{[f'{x:.4f}' for x in rate['default']]}, bend_batch "
+        f"{[f'{x:.4f}' for x in rate['batch']]} (in turns), Newton iters "
+        f"{runs['batch'][0][1]['newton_iters']} vs "
+        f"{runs['default'][0][1]['newton_iters']}; launches over the four "
+        f"forwards {launches}; adjoint {bsecs:.3f} s, |gripper_grad| "
+        f"{float(torch.linalg.vector_norm(res.gripper_grad)):.4e}; positions "
+        f"vs the default form {rel:.3e} of the largest cloth displacement "
+        f"(tol {PLAIN_VS_KERNEL_RTOL:.0e}); finite {finite}")
+    if not (finite and rel <= PLAIN_VS_KERNEL_RTOL
+            and min(launches.values()) > 0):
+        raise AssertionError("[bend-batch] the batch form's bench run fails")
+
+    small = bench_scene.make(dtype=torch.float64, **BEND_SMALL_CFG)
+    sp, s0, params = small.to(device, torch.float64)
+    gold = np.load(GOLDEN_BEND)["pos"]
+    s0 = s0.replace(pos=torch.as_tensor(gold[0], device=device))
+    acts = bench_actions(BEND_T, torch.float64, device, BEND_SMALL_DZ)
+    pos = [stepper.simulate(x, params, s0, acts)[1]["pos"].cpu().numpy()
+           for x in (sp.replace(bend_batch=True), sp)]
+    e_forms = float(np.abs(pos[0] - pos[1]).max())
+    e_jax = float(np.abs(pos[0] - gold).max())
+    log(f"[bend-batch] bench cloth_N=8 f64 dense T={BEND_T} (pad 2 mm a "
+        f"step) on the card: the two forms {e_forms:.3e} m apart (tol "
+        f"{BEND_F64_ATOL:.0e}), the batch form vs the JAX golden "
+        f"{e_jax:.3e} m (tol {BEND_JAX_ATOL:.0e})")
+    if not (e_forms <= BEND_F64_ATOL and e_jax <= BEND_JAX_ATOL):
+        raise AssertionError("[bend-batch] the two hinge forms disagree")
+
+
+def profile_trace_phase(device):
+    """[profile-trace]: utils.profiling.device_trace around one bench step
+    (f32, full size): the Chrome trace it writes names both DIA kernels;
+    PhaseTimer times the step traced and untraced."""
+    import tempfile
+
+    from thinshelllab_torch.scenes import bench_scene
+    from thinshelllab_torch.utils.profiling import PhaseTimer, device_trace
+
+    sc = bench_scene.make(cloth_N=70, table_n=12, dtype=torch.float32,
+                          hess_refresh=8, fwd_tol=1e-3, max_newton_iter=8)
+    spec, s0, params = sc.to(device, torch.float32)
+    pt = PhaseTimer()
+    with pt.phase("bench step, untraced", sync=s0.pos):
+        buf = rollout(spec, s0, params, device, T=1)[0]
+    with tempfile.TemporaryDirectory() as d:
+        with pt.phase("bench step, traced", sync=buf["pos"]):
+            with device_trace(d):
+                buf = rollout(spec, s0, params, device, T=1)[0]
+        path = os.path.join(d, "trace.json")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    counts = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                     and k in e.get("name", ""))
+              for k in ("dia_spmv_kernel", "dia_precond_kernel")}
+    log(f"[profile-trace] device_trace of one bench step: trace.json "
+        f"{size / 2**20:.1f} MiB, kernel events {counts}")
+    for line in pt.report().splitlines():
+        log(f"[profile-trace] {line.strip()}")
+    if min(counts.values()) <= 0:
+        raise AssertionError("[profile-trace] the trace misses a DIA kernel")
+
+
+def native_phase():
+    """[native]: the cloth tables, hinge stencils and cube lattices of the
+    bench (cloth_N 70 and 140) and of every task scene and the hairpin,
+    from the native helper against the numpy paths, integer for integer."""
+    from thinshelllab_torch import native
+    from thinshelllab_torch.core import builder, topology
+    from thinshelllab_torch.scenes import bench_scene, hairpin, registry
+
+    t0 = time.perf_counter()
+    scenes = {f"bench {n}": bench_scene.make(cloth_N=n, table_n=12).spec
+              for n in (70, 140)}
+    scenes["hairpin"] = hairpin.make(torch.float64)[0]
+    for name in ("folding",) + NEW_SCENES:
+        scenes[name] = registry.make_scene(name).spec
+    checked, mismatched = [], []
+    for name, spec in scenes.items():
+        c = spec.cloth
+        for N, M in set(zip(c.N, c.M)):
+            tables = native.cloth_mesh_tables(N, M)
+            same = all(np.array_equal(a, b) for a, b in zip(
+                tables, topology.cloth_tables_numpy(N, M)))
+            mesh = topology.build_cloth_mesh(N, M)
+            pos = np.random.default_rng(N * 1000 + M).normal(
+                size=(mesh.NV, 3)) * 0.01
+            same &= all(np.array_equal(a, b) for a, b in zip(
+                native.build_hinges(mesh.f2v, mesh.counter_face,
+                                    mesh.counter_point, pos),
+                builder.build_hinges_numpy(mesh, pos)))
+            checked.append(f"{name} {N}x{M}")
+            if not same:
+                mismatched.append(f"{name} {N}x{M}")
+    for dims in ((12, 12, 2), (4, 4, 2), (5, 5, 5)):
+        checked.append(f"cube {dims}")
+        if not np.array_equal(native.cube_tets(*dims),
+                              topology.cube_tets_numpy(*dims)):
+            mismatched.append(f"cube {dims}")
+    log(f"[native] {len(checked)} tables, native helper against numpy "
+        f"({time.perf_counter() - t0:.1f} s with the host builds): "
+        f"{', '.join(checked)}; mismatched: {mismatched or 'none'}")
+    if mismatched:
+        raise AssertionError(f"[native] tables differ: {mismatched}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: CUDA is not available; the port's "
@@ -2270,6 +2606,11 @@ def main():
 
     kres = timed("kernel checks", kernel_checks, sc, device)
     timed("self-contact", self_contact_phase, device, "early")
+    launches_render = timed("render", render_phase, device)
+    timed("debug", debug_phase, device)
+    timed("bend-batch", bend_batch_phase, device)
+    timed("profile-trace", profile_trace_phase, device)
+    timed("native", native_phase)
     timed("golden", golden_check, device)
     timed("golden-adjoint", golden_adjoint_check, device)
     t_main = time.perf_counter()
@@ -2402,6 +2743,7 @@ def main():
              launches_cg_scenes=launches_cg[name],
              launches_bench_40k=launches_40k[name],
              launches_cmaes_cg=launches_cmaes_cg[name],
+             launches_render=launches_render[name],
              plans=plans(name), **kres[name])
         for name in ("dia_spmv", "dia_precond")]}))
     print(smi)

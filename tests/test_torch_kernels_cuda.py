@@ -21,7 +21,8 @@ small folding scene, and one step of every other task scene at its
 published size against the same step on the CPU. The policy-search
 layers: one CMAESDriver generation on forming under solver="cg" (finite,
 both kernels launched) and one PPO update in f64 against the same update
-on the CPU.
+on the CPU. The preview's triangle fill (render/raster.py) against the
+same fill on the CPU, pixel for pixel.
 """
 import dataclasses
 import types
@@ -602,3 +603,32 @@ def test_trainers_train_on_the_card(cuda, algo):
     a = tr.act(Stub().reset())
     a = a[0] if isinstance(a, tuple) else a
     assert a.shape == (4, 6) and np.all(np.isfinite(a))
+
+
+@pytest.mark.cuda
+def test_raster_fill_matches_cpu(cuda):
+    """The preview's triangle fill (render/raster.py) on the card equals
+    the same fill on the CPU pixel for pixel: the folding scene's faces
+    projected in painter's order at two states, and random triangles."""
+    from thinshelllab_torch.render import preview, raster
+
+    sc = folding.make()
+    faces = np.asarray(sc.spec.faces)
+    rng = np.random.default_rng(0)
+    for k in range(2):
+        pos = np.asarray(sc.state0.pos) + 1e-3 * k * rng.standard_normal(
+            np.shape(sc.state0.pos))
+        view = raster.Axes3DView(((-0.08, 0.08), (-0.08, 0.08),
+                                  (-0.03, 0.06)))
+        order = preview.painter_order(pos, faces, (-0.2, 0.2, 0.05), view.M)
+        tri = view.to_pixels(torch.as_tensor(pos))[
+            torch.as_tensor(faces[order], dtype=torch.int64)]
+        want = raster.fill_triangles(tri, 600, 600, box=view.box)
+        got = raster.fill_triangles(tri.to(cuda), 600, 600, box=view.box)
+        assert (want >= 0).any()
+        assert torch.equal(got.cpu(), want)
+    tri = torch.as_tensor(rng.uniform(-20, 220, (3000, 1, 2))
+                          + rng.uniform(-15, 15, (3000, 3, 2)))
+    assert torch.equal(
+        raster.fill_triangles(tri.to(cuda), 200, 200, chunk=1 << 16).cpu(),
+        raster.fill_triangles(tri, 200, 200, chunk=1 << 16))

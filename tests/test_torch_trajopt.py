@@ -228,27 +228,27 @@ def test_cli_unknown_env_raises_the_listing():
 
 
 def test_cli_unported_options_raise(tmp_path, capsys):
-    """Without a card the default platform raises; --render_every is not
-    ported and raises; --fwd_chunk (once unported) gives the line of the
-    whole rollout: the published scene for 3 steps on the CPU, in
-    segments of 2 steps and in one."""
+    """Without a card the default platform raises; --render_every (once
+    unported) renders the rollout; --fwd_chunk (once unported) gives the
+    line of the whole rollout: the published scene for 3 steps on the
+    CPU, in segments of 2 steps and in one."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
             cli.main(["trajopt", "--env", "folding", "--iter", "1"])
         with pytest.raises(RuntimeError, match="no CUDA card"):
             TrajOptDriver(folding.make(**CFG), T)
     base = ["trajopt", "--platform", "cpu", "--iter", "1"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(base + ["--render_every", "1"])
     capsys.readouterr()
     got = []
-    for extra in ([], ["--fwd_chunk", "2"]):
+    for extra in (["--render_every", "1"], ["--fwd_chunk", "2"]):
         cli.main(base + ["--env", "folding", "--tot_step", "3",
                          "--save_dir", str(tmp_path)] + extra)
         m = LINE.match(capsys.readouterr().out.strip().splitlines()[0])
         assert m is not None
         got.append(m.group(2, 3))
     assert got[0] == got[1] and np.isfinite(float(got[0][0]))
+    assert {"0.png", "1.png", "2.png", "GIF_0.gif"} <= set(
+        os.listdir(tmp_path))
 
 
 def _write_golden():

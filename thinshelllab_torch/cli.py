@@ -6,6 +6,7 @@ training/*.py + code/scripts/*.sh). The port has the `trajopt`, `cmaes`,
   python -m thinshelllab_torch.cli cmaes   --env lifting --pop_size 8 --iter 15
   python -m thinshelllab_torch.cli dp      --env bouncing --iter 20 --lr 10
   python -m thinshelllab_torch.cli rl      --env folding --timesteps 100000
+  python -m thinshelllab_torch.cli render  --env folding --frames 20
 
 All run on the CUDA card (`--platform gpu`, the default; no card raises)
 with the JAX CLI's accelerator defaults: solver 'auto' (dense below 6000
@@ -14,8 +15,10 @@ path on any scene: CG on the DIA plan with the CUDA kernels and the
 GMRES adjoint where the cloth is wide enough for a plan, CG on the pull
 operator and the MINRES adjoint where it is not (folding). `--platform cpu`
 takes the JAX CLI's CPU defaults: the dense solver and the scene's own
-dtype (float64) unless --f32. The `render` and `bench` subcommands are
-not ported yet.
+dtype (float64) unless --f32. `render` (and `trajopt --render_every`)
+simulates on the run's device and draws each frame there (`render/`:
+PNG frames and a GIF, or LuisaRender scripts with OBJ files). The
+`bench` subcommand waits for the port's benchmark.
 """
 from __future__ import annotations
 
@@ -110,11 +113,9 @@ def _init_traj(agent, name):
 
 
 def cmd_trajopt(args):
+    from .render.engine import Renderer
     from .train.trajopt import TrajOptDriver
 
-    if args.render_every:
-        raise NotImplementedError("--render_every: rendering is not ported "
-                                  "yet (ROADMAP queue item 7)")
     device = _device(args)
     scene = _make_scene(args, device)
     ls = _default_load_state(args)
@@ -129,12 +130,45 @@ def cmd_trajopt(args):
         drv.agent.load(args.load_traj)
     if args.init_traj:
         _init_traj(drv.agent, args.init_traj)
+    renderer = Renderer(scene, args.env, option=args.render_option,
+                        save_dir=save_dir) if args.render_every else None
     for i in range(args.iter):
         info = drv.iteration()
         print(f"iter {i}: reward {info['reward']:.6f} "
               f"|g| {info['grad_norm']:.4g} t {info['wall_time']:.2f}s",
               flush=True)
+        if renderer and i % args.render_every == 0:
+            _render_rollout(drv.spec, drv.params, drv.state0,
+                            drv.agent.actions(), renderer, tag=i)
     print("best reward:", drv.best_reward)
+
+
+def _render_rollout(spec, params, state0, actions, renderer, tag=0):
+    """Simulate the actions from state0 on the scene's device and render
+    every frame of the tape (frame t = the state after step t)."""
+    from .engine import stepper
+
+    _, buffers = stepper.simulate(spec, params, state0, actions)
+    pos = buffers["pos"]
+    for t in range(pos.shape[0]):
+        renderer.render(str(t), pos=pos[t])
+    return renderer.end_rendering(tag)
+
+
+def cmd_render(args):
+    """A rollout of `--frames` steps with the grippers still, rendered
+    frame by frame (JAX cli.cmd_render)."""
+    from .render.engine import Renderer
+
+    device = _device(args)
+    scene = _make_scene(args, device)
+    renderer = Renderer(scene, args.env, option=args.render_option,
+                        save_dir=args.save_dir or f"imgs/{args.env}")
+    T, n = args.frames, scene.n_part
+    actions = tuple(torch.zeros(shape, dtype=torch.float64, device=device)
+                    for shape in ((T, n, 3), (T, n, 3), (T, n)))
+    spec, state0, params = scene.to(device)
+    _render_rollout(spec, params, state0, actions, renderer)
 
 
 def cmd_dp(args):
@@ -326,8 +360,9 @@ def build_parser():
                         "balancing/balance/throwing default to the bundled "
                         "pre-grasped state, 'none' starts cold")
     p.add_argument("--render_every", type=int, default=0,
-                   help="render every n iterations (not ported yet)")
-    p.add_argument("--render_option", type=str, default="Preview")
+                   help="render the rollout every n iterations (0: never)")
+    p.add_argument("--render_option", type=str, default="Preview",
+                   help="Preview (PNG frames + GIF) or LuisaScript")
     p.add_argument("--fwd_chunk", type=int, default=0,
                    help="the JAX package's rollout segments of this many "
                         "steps (0: none); the port's rollout is one host "
@@ -381,6 +416,14 @@ def build_parser():
     p.add_argument("--horizon", type=int, default=64,
                    help="on-policy rollout chunk length (ppo/recurrent_ppo)")
     p.set_defaults(fn=cmd_rl)
+
+    p = sub.add_parser("render")
+    _add_common(p)
+    p.add_argument("--frames", type=int, default=20)
+    p.add_argument("--render_option", type=str, default="Preview",
+                   help="Preview (PNG frames + GIF), Taichi (the same) or "
+                        "LuisaScript")
+    p.set_defaults(fn=cmd_render)
     return ap
 
 

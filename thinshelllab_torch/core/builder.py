@@ -17,6 +17,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from . import topology
 from .spec import (
     ClothSoup,
@@ -399,7 +400,7 @@ class SceneBuilder:
             cf_all.append(np.where(m.counter_face >= 0, m.counter_face + face_off,
                                    m.counter_face))
             cp_all.append(m.counter_point)
-            sv, st, sm = _build_hinges(m, b.init_pos)
+            sv, st, sm = build_hinges(m, b.init_pos)
             hv.append(sv + b.v_offset)
             hstencil.append(st)
             hmask.append(sm)
@@ -599,10 +600,19 @@ def _sel_from_stencils(st: np.ndarray) -> np.ndarray:
     return sel
 
 
-def _build_hinges(mesh: topology.ClothMesh, init_pos: np.ndarray):
+def build_hinges(mesh: topology.ClothMesh, init_pos: np.ndarray):
     """Hinge soup of one cloth: stencils [v0,v1,v2,v3], the counter-face
     cycle order, and the signed-edge orientation that fixes the reference's
-    angle-sign convention (see energies.hinge_angle)."""
+    angle-sign convention (see energies.hinge_angle). From the native
+    helper, as in the JAX package; TSL_NO_NATIVE=1 takes
+    build_hinges_numpy."""
+    nat = native.build_hinges(mesh.f2v, mesh.counter_face,
+                              mesh.counter_point, init_pos)
+    return nat if nat is not None else build_hinges_numpy(mesh, init_pos)
+
+
+def build_hinges_numpy(mesh: topology.ClothMesh, init_pos: np.ndarray):
+    """The numpy version of native.build_hinges."""
     NF = mesh.NF
     NH = NF * 3
     hv = np.zeros((NH, 4), np.int32)

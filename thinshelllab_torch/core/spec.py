@@ -286,3 +286,28 @@ class ContactSet(_Struct):
     mu: Any      # (C,)
     dx0: Any     # (C, 3) reference tangential offset
     T: Any       # (C, 2, 3) tangent frame
+
+
+def zero_params(spec: SceneSpec) -> Params:
+    """The JAX package's default Params of a spec (kl = ka = 1000 and
+    kb = 100 per cloth, everything else zero), with numpy leaves in the
+    spec's dtype as the builder makes them (`Params.to` moves them)."""
+    nd = {torch.float32: np.float32, torch.float64: np.float64}[spec.dtype]
+    nc = max(spec.cloth.n_cloths, 1)
+    return Params(
+        kl=np.full((nc,), 1000.0, nd),
+        ka=np.full((nc,), 1000.0, nd),
+        kb=np.full((nc,), 100.0, nd),
+        neo_mu=np.zeros((1,), nd),
+        neo_lam=np.zeros((1,), nd),
+        tact_mu=np.zeros((1,), nd),
+        tact_lam=np.zeros((1,), nd),
+        mu_pairs=np.zeros((1,), nd),
+    )
+
+
+def body_of_vertex(spec: SceneSpec, i: int) -> int:
+    for b in range(spec.n_bodies):
+        if spec.body_v_start[b] <= i < spec.body_v_end[b]:
+            return b
+    raise ValueError(i)

@@ -1,8 +1,11 @@
-"""Host-side (numpy) mesh topology builders: the pure-numpy paths of
-`thinshelllab_tpu/core/topology.py` (the reference's cloth grid with its
-verbatim hinge table, the 5-tet cube lattice and the TetGen tactile pad).
-The JAX package's optional C++ helper (`native/topology.cpp`) computes the
-same tables faster; the port has no counterpart of it yet.
+"""Host-side mesh topology builders (counterpart of
+`thinshelllab_tpu/core/topology.py`): the reference's cloth grid with its
+verbatim hinge table, the 5-tet cube lattice and the TetGen tactile pad.
+
+The cloth tables and the cube lattice come from the native C++ helper
+(`thinshelllab_torch/native`, built with g++ at first use), as in the JAX
+package; TSL_NO_NATIVE=1 takes the numpy versions (`cloth_tables_numpy`,
+`cube_tets_numpy`), which compute the same integers.
 """
 from __future__ import annotations
 
@@ -10,6 +13,7 @@ import dataclasses
 
 import numpy as np
 
+from .. import native
 from ..io import tetfile
 
 
@@ -27,14 +31,33 @@ class ClothMesh:
     uv: np.ndarray             # (NV, 2)
 
 
-def build_cloth_mesh(N: int, M: int) -> ClothMesh:
+def build_cloth_mesh(N: int, M: int, exact_adjacency: bool = False) -> ClothMesh:
     """Regular (N x M) quad grid split checkerboard-style, with the
     reference's hinge adjacency table replicated verbatim, zero-init and
     slot-overwrite quirks included (the set of active hinges defines the
-    bending energy)."""
+    bending energy). exact_adjacency=True replaces the table with the
+    complete half-edge adjacency (`_exact_adjacency`)."""
     NV = (N + 1) * (M + 1)
     NF = 2 * N * M
+    tables = None if exact_adjacency else native.cloth_mesh_tables(N, M)
+    f2v, cf, cp, indices = tables or cloth_tables_numpy(N, M)
+    if exact_adjacency:
+        cf, cp = _exact_adjacency(f2v, NF)
+    uv = np.zeros((NV, 2))
+    ii, jj = np.meshgrid(np.arange(N + 1), np.arange(M + 1), indexing="ij")
+    uv[:, 0] = (1.0 - jj / M).ravel()
+    uv[:, 1] = (ii / N).ravel()
+    hinge_mask = cf > np.arange(NF)[:, None]
+    return ClothMesh(N, M, NV, NF, f2v, cf, cp, hinge_mask, indices, uv)
+
+
+def cloth_tables_numpy(N: int, M: int):
+    """(f2v, counter_face, counter_point, indices) of the N x M grid, the
+    numpy version of native.cloth_mesh_tables."""
+    NF = 2 * N * M
     f2v = np.zeros((NF, 3), dtype=np.int32)
+    # Taichi zero-initialises fields; the reference relies on that for
+    # slots it never writes (odd-quad slot 0), so start at 0, not -1
     cf = np.zeros((NF, 3), dtype=np.int32)
     cp = np.zeros((NF, 3), dtype=np.int32)
     indices = np.zeros(NF * 3, dtype=np.int32)
@@ -79,13 +102,26 @@ def build_cloth_mesh(N: int, M: int) -> ClothMesh:
             cf[k + 1, 1], cp[k + 1, 1] = k, 1
             qid = i * M + j
             indices[qid * 6 : qid * 6 + 6] = quad_tris
+    return f2v, cf, cp, indices
 
-    uv = np.zeros((NV, 2))
-    ii, jj = np.meshgrid(np.arange(N + 1), np.arange(M + 1), indexing="ij")
-    uv[:, 0] = (1.0 - jj / M).ravel()
-    uv[:, 1] = (ii / N).ravel()
-    hinge_mask = cf > np.arange(NF)[:, None]
-    return ClothMesh(N, M, NV, NF, f2v, cf, cp, hinge_mask, indices, uv)
+
+def _exact_adjacency(f2v: np.ndarray, NF: int):
+    """Complete half-edge adjacency: counter_face[i][l] is the other face
+    sharing the edge opposite local vertex l; counter_point its far vertex."""
+    cf = -np.ones((NF, 3), dtype=np.int32)
+    cp = np.zeros((NF, 3), dtype=np.int32)
+    edge_map: dict[tuple[int, int], tuple[int, int]] = {}
+    for i in range(NF):
+        for l in range(3):
+            u, v = f2v[i, (l + 1) % 3], f2v[i, (l + 2) % 3]
+            key = (min(u, v), max(u, v))
+            if key in edge_map:
+                j, m = edge_map.pop(key)
+                cf[i, l], cp[i, l] = j, m
+                cf[j, m], cp[j, m] = i, l
+            else:
+                edge_map[key] = (i, l)
+    return cf, cp
 
 
 @dataclasses.dataclass
@@ -104,13 +140,22 @@ def build_cube_tet_mesh(nx: int, ny: int, nz: int, length: float) -> TetMesh:
     n_cube = np.array([nx, ny, nz])
     dx = length / (n_cube.max() - 1)
     n_verts = nx * ny * nz
-
-    def i2p(ix, iy, iz):
-        return (ix * ny + iy) * nz + iz
-
     gx, gy, gz = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz),
                              indexing="ij")
     rest = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3).astype(np.float64) * dx
+
+    tets = native.cube_tets(nx, ny, nz)
+    if tets is None:
+        tets = cube_tets_numpy(nx, ny, nz)
+    surfaces = _extract_cube_surface(tets, rest, n_cube)
+    return TetMesh(n_verts, len(tets), len(surfaces), rest, tets, surfaces)
+
+
+def cube_tets_numpy(nx: int, ny: int, nz: int) -> np.ndarray:
+    """The lattice's 5 tets a cell (the numpy version of
+    native.cube_tets)."""
+    def i2p(ix, iy, iz):
+        return (ix * ny + iy) * nz + iz
 
     tets = []
     corner_sets = [(j, j ^ 1, j ^ 2, j ^ 4) for j in (0, 3, 5, 6)] + [(1, 2, 4, 7)]
@@ -125,9 +170,7 @@ def build_cube_tet_mesh(nx: int, ny: int, nz: int, length: float) -> TetMesh:
                         off = (bits ^ parity) & 1
                         tet.append(i2p(ix + off[0], iy + off[1], iz + off[2]))
                     tets.append(tet)
-    tets = np.array(tets, dtype=np.int32).reshape(-1, 4)
-    surfaces = _extract_cube_surface(tets, rest, n_cube)
-    return TetMesh(n_verts, len(tets), len(surfaces), rest, tets, surfaces)
+    return np.array(tets, dtype=np.int32).reshape(-1, 4)
 
 
 def _boundary_code(u: int, n_cube: np.ndarray) -> int:

@@ -386,13 +386,21 @@ def total_energy(spec, params, pos, prev_pos, vel, ref_angle, contact):
 
 def bending_soup_eg(spec, params, xb, ref_angle):
     """Bending energy sum + masked per-hinge gradients of the gathered hinge
-    soup (NH, 4, 3)."""
-    if spec.bend_batch:
-        raise NotImplementedError("bend_batch=True (the leading-axis-split "
-                                  "hinge form) is not ported yet")
+    soup (NH, 4, 3). spec.bend_batch (TSL_BEND_BATCH=1 at scene build)
+    takes the JAX package's batch form: bending_energy_batch, its gradient
+    the vector-Jacobian product with the 0/1 hinge mask as the cotangent
+    (torch.func.vjp, so that autograd through the gradient, as the
+    parameter gradient takes it, still works). The two forms agree to
+    rounding; every path of one spec takes the same form."""
     c = spec.cloth
     kb = params.kb[c.hinge_cloth]
     m = spec.dev.hinge_m
+    if spec.bend_batch:
+        eb, vjp = torch.func.vjp(
+            lambda xx: en.bending_energy_batch(xx, c.hinge_sel, ref_angle,
+                                               c.hinge_coef, kb), xb)
+        (gb,) = vjp(m)
+        return torch.sum(eb * m), gb
     eb, gb = _energies_and_grads(en.bending_energy, xb, c.hinge_sel,
                                  ref_angle, c.hinge_coef, kb)
     return torch.sum(eb * m), gb * m[:, None, None]
@@ -417,9 +425,6 @@ def linesearch_energy_fn(spec, params, pos, p, prev_pos, vel, ref_angle,
     soups gathered once: gathering commutes with the affine step, so a
     trial gathers nothing. soups/dsoups: gather_soups of pos and of p
     (direction=True), gathered here when not given."""
-    if spec.bend_batch:
-        raise NotImplementedError("bend_batch=True (the leading-axis-split "
-                                  "hinge form) is not ported yet")
     c = spec.cloth
     kl, ka = _face_params(spec, params)
     kb = params.kb[c.hinge_cloth]
@@ -434,6 +439,7 @@ def linesearch_energy_fn(spec, params, pos, p, prev_pos, vel, ref_angle,
     mb = spec.dev.hinge_m
     mC = contact.active.to(pos.dtype)
     bar = _barrier_fn(spec)
+    bend = en.bending_energy_batch if spec.bend_batch else en.bending_energy
 
     def E_of(alpha):
         e = en.inertia_external_energy(pos - alpha * p, prev_pos, vel,
@@ -441,8 +447,7 @@ def linesearch_energy_fn(spec, params, pos, p, prev_pos, vel, ref_angle,
                                        spec.ext_force, spec.dt)
         e = e + torch.sum(en.membrane_energy(xm - alpha * dm, c.l0,
                                              c.rest_area, kl, ka))
-        eb = en.bending_energy(xb - alpha * db, c.hinge_sel, ref_angle,
-                               c.hinge_coef, kb)
+        eb = bend(xb - alpha * db, c.hinge_sel, ref_angle, c.hinge_coef, kb)
         e = e + torch.sum(eb * mb)
         for soup, mu, lam, efn, xt, dt_ in tets:
             e = e + torch.sum(efn(_tet_D(xt - alpha * dt_), soup.B, soup.W,

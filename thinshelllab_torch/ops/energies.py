@@ -11,6 +11,7 @@ arithmetic.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -79,9 +80,42 @@ def hinge_angle(x, sel):
     return torch.atan2(_dot(_cross(n1, n2), ehat), _dot(n1, n2))
 
 
+def stencil_to_sel(ja, jb, ea, eb, dtype=np.float64):
+    """The (4, 4) one-hot selection matrix (numpy) of stencil indices."""
+    sel = np.zeros((4, 4), dtype)
+    for r, i in enumerate((ja, jb, ea, eb)):
+        sel[r, i] = 1.0
+    return sel
+
+
 def bending_energy(x, sel, ref_angle, coef, kb):
     """coef = dx^2 / 3 (reference model_fold_offset.py:120)."""
     theta = hinge_angle(x, sel)
+    return kb * (theta - ref_angle) ** 2 * coef
+
+
+def bending_energy_batch(x, sel, ref_angle, coef, kb):
+    """Per-hinge bending energies over the whole soup at once: x (NH, 4, 3),
+    sel (NH, 4, 4) -> (NH,), the JAX package's leading-axis-split form
+    (`spec.bend_batch`). The 8 geometry rows (the 4 stencil vertices and
+    the 4 sel-selected rows) come out of ONE broadcast multiply-reduce
+    with the 0/1 rows [I; sel], stacked along a leading axis. Selecting
+    with exact 0/1 factors is exact, so this agrees with bending_energy
+    to rounding (the two forms order a few operations differently)."""
+    eye = torch.eye(4, dtype=x.dtype, device=x.device).expand(sel.shape)
+    sel8 = torch.cat([eye, sel.to(x.dtype)], dim=1)  # (NH, 8, 4)
+    rows = torch.sum(sel8[:, :, :, None] * x[:, None, :, :],
+                     dim=2).transpose(0, 1)  # (8, NH, 3): leading split
+    x0, x1, x2, x3, xa, xb, xea, xeb = rows
+
+    def _hat(v):
+        return v / torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+
+    n1 = _hat(_cross(x1 - x0, x2 - x1))
+    n2 = _hat(_cross(xa - x3, xb - xa))
+    ehat = _hat(xeb - xea)
+    theta = torch.atan2(torch.sum(_cross(n1, n2) * ehat, dim=-1),
+                        torch.sum(n1 * n2, dim=-1))
     return kb * (theta - ref_angle) ** 2 * coef
 
 

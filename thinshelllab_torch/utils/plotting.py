@@ -5,16 +5,16 @@ save a matplotlib `plot.png` of the reward history every iteration beside
 
 With matplotlib the figure is the JAX package's. A machine without it (the
 card's image has none) gets a plain line chart of the same history,
-drawn here with numpy and written with zlib, so the drivers write
-`plot.png` wherever they run.
+drawn here with numpy and written by the port's PNG writer
+(`render/raster.py`), so the drivers write `plot.png` wherever they run.
 """
 from __future__ import annotations
 
 import os
-import struct
-import zlib
 
 import numpy as np
+
+from ..render.raster import write_png
 
 try:
     import matplotlib
@@ -34,7 +34,7 @@ def save_reward_curve(path: str, history, ylabel: str = "reward"):
     y = np.asarray(history, dtype=float)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     if plt is None:
-        _write_png(path, _line_chart(y))
+        write_png(path, _line_chart(y))
         return path
     fig, ax = plt.subplots()
     ax.plot(np.arange(len(y)), y)
@@ -68,20 +68,3 @@ def _line_chart(y):
     if len(pts) == 1:
         img[int(round(pts[0, 1])), int(round(pts[0, 0]))] = _BLUE
     return img
-
-
-def _write_png(path, img):
-    """An 8-bit RGB PNG of img (H, W, 3)."""
-    def chunk(kind, data):
-        body = kind + data
-        return (struct.pack(">I", len(data)) + body
-                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
-
-    h, w, _ = img.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           img.reshape(h, w * 3)], axis=1)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                + chunk(b"IEND", b""))

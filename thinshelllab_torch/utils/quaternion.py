@@ -26,6 +26,15 @@ def quat_to_rotmat(q):
     return r.reshape(q.shape[:-1] + (3, 3))
 
 
+def rotmat_to_quat(m):
+    """(..., 3, 3) -> (..., 4); assumes trace > -1 (as the reference does)."""
+    s = torch.sqrt(1.0 + m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2]) / 2.0
+    x = (m[..., 2, 1] - m[..., 1, 2]) / (4 * s)
+    y = (m[..., 0, 2] - m[..., 2, 0]) / (4 * s)
+    z = (m[..., 1, 0] - m[..., 0, 1]) / (4 * s)
+    return torch.stack([s, x, y, z], dim=-1)
+
+
 def quat_apply_delta_rot(q, delta_rot):
     """Reference rotation update (gripper_tactile.step_simple:178-190):
     q <- normalize(q + (-delta_rot . v, q_s delta_rot + delta_rot x v))."""
