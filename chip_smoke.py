@@ -42,8 +42,10 @@ identification driver on bouncing. The policy-search layers follow:
 [cmaes-golden] holds the CPU test's f64 CMAESDriver generation and
 rollout_stop_step on the JAX package's rammed-pad tape against the JAX
 runs (tests/data/cmaes_golden.npz); [cmaes] runs one f32 generation on
-the published folding scene; [cmaes-cg] one f32 generation on forming
-under solver="cg", which must launch both kernels; [rl-golden] holds the
+the published folding scene (Newton capped at TRAJOPT_NEWTON); [cmaes-cg]
+one f32 generation on forming under solver="cg", which must launch both
+kernels, under torch's deterministic algorithms (so that [mesh] can hold
+the mesh's generation to it bit for bit); [rl-golden] holds the
 CPU test's f64 Env, EvalEnv and BatchedEnv runs against the JAX runs
 (tests/data/rl_golden.npz); [rl] runs one update of each native trainer
 (PPO, SAC, recurrent PPO) on a BatchedEnv of the published folding scene
@@ -80,6 +82,14 @@ small f64 bench against the JAX run (tests/data/bend_batch_golden.npz);
 [profile-trace] writes a `utils.profiling.device_trace` of one bench
 step, which must name both kernels; [native] holds the native helper's
 cloth tables, hinges and cube lattices against the numpy paths.
+
+[mesh], last (parallel/mesh.py and entry.py): sharded_train_step on a
+world of one over NCCL on the full bench in f32, the pad pressing, against
+the mean of serial backwards (both kernels launched: `launches_mesh`); one
+CMAESDriver generation through the mesh against [cmaes-cg]'s of the same
+run, both under torch's deterministic algorithms (bit for bit); `entry()` on the card
+and `dryrun_multichip(1)` (one spawned NCCL rank); on a machine with more
+cards, the train step at world = device_count as well.
 
     python3 chip_smoke.py
 
@@ -188,8 +198,9 @@ SCENES_T, SCENE_DZ, SCENE_DISP_MAX = 2, -2e-4, 0.05
 # step, for the script's time target, PERF.md)
 SCENES_TRAJOPT_T = 2
 # the Newton cap of the f32 iterations of [scenes-trajopt] and
-# [cg-trajopt], cut from the published 50 (lifting's own is 15) to make
-# room for the policy-search phases within the script's time target: the
+# [cg-trajopt], and of [cmaes]'s generation, cut from the published
+# 50 (lifting's own is 15) to make room for the policy-search phases and
+# [mesh] within the script's time target: the
 # f32 Newton stalls at whatever cap it has (PERF.md §5), so the cut
 # shortens each stalled step and changes no gate
 TRAJOPT_NEWTON = 15
@@ -278,6 +289,30 @@ RL_BATCHED_T0 = (0, 1)
 # (a depth cut, as [scenes-golden] cuts it: the f32 Newton stalls at the
 # published cap of 50, about 10 s a step, PERF.md §5)
 RL_NEWTON, RL_ENVS, RL_HORIZON = 5, 2, 2
+# [mesh] (parallel/mesh.py): (a) sharded_train_step on a world of one over
+# NCCL on the main path's bench (BENCH_CFG) in f32, MESH_B members of
+# MESH_T steps, each pressing PRESS_Z a step plus JAX's dryrun jitter
+# (numpy seed 0, 1e-4 m): on the bench's own 0.4 mm a step the gripper
+# gradient is zero. Held against the mean of MESH_B serial backwards,
+# both under torch's deterministic algorithms (deterministic()): as they
+# stand, the scatter-adds sum with atomics in
+# another order each run, and at t=1 of this tape f32 GMRES stops at a
+# stagnation exit (relative residual 0.06-0.58), so two runs of the same
+# code part by up to the whole gradient (scripts/probe_mesh_grad_spread.py,
+# PERF.md). In one summation order they do the same operations; the
+# new waypoints and the loss proxy (2 x 5,605 squared f32 positions,
+# summed per member for the reference) differ at most by the roundings of
+# the sums' order: 1e-6 relative.
+BENCH_CFG = dict(cloth_N=70, table_n=12, dtype=torch.float32, hess_refresh=8,
+                 fwd_tol=1e-3, max_newton_iter=8)
+MESH_T, MESH_B = 2, 2
+MESH_GRAD_RTOL, MESH_LOSS_RTOL = 1e-6, 1e-6
+# (b) one CMAESDriver generation through a mesh of one, with [cmaes-cg]'s
+# scene, seed and settings, against [cmaes-cg]'s rewards of the same run,
+# both under deterministic algorithms: equal bit for bit. As it stands
+# the generation does not repeat: a member's reward took three values up
+# to 3.5e-6 apart over 13 runs (scripts/cmaes_cg_spread.py, PERF.md),
+# so a tolerance from the spread of a few runs would not hold.
 # the card's published peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores, at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -1472,7 +1507,7 @@ def cmaes_phase(device, name, **kw):
     """One CMAESDriver generation (pop CMAES_POP, tot_step CMAES_TOT,
     abs_step CMAES_ABS) on a published scene in f32, as `cli cmaes` runs
     it on a card: finite rewards. Returns (the DIA kernel launches of the
-    generation, its seconds)."""
+    generation, its seconds, the member rewards)."""
     from thinshelllab_torch.ops import dia_spmv as K
     from thinshelllab_torch.scenes import registry
     from thinshelllab_torch.train.cmaes import CMAESDriver
@@ -1500,7 +1535,7 @@ def cmaes_phase(device, name, **kw):
     log(f"gen 0: best {info['best_reward']:.4f} mean {info['gen_mean']:.4f}")
     if not np.all(np.isfinite(info["rewards"])):
         raise AssertionError(f"{tag} {name}: rewards {info['rewards']}")
-    return launches, secs
+    return launches, secs, info["rewards"]
 
 
 def _rl_obs_err(obs32, obs64, want32, want64):
@@ -2572,6 +2607,199 @@ def native_phase():
         raise AssertionError(f"[native] tables differ: {mismatched}")
 
 
+@contextlib.contextmanager
+def deterministic(on=True):
+    """torch's deterministic algorithms inside the block (with `on`): the
+    CUDA scatter-adds then sum in one order, so a run repeats bit for bit.
+    cuBLAS asks for a fixed workspace (CUBLAS_WORKSPACE_CONFIG) before it
+    takes part; this process runs one stream, on which cuBLAS repeats its
+    results anyway."""
+    if not on:
+        yield
+        return
+    key = "CUBLAS_WORKSPACE_CONFIG"
+    before = os.environ.get(key)
+    os.environ.setdefault(key, ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if before is None:
+            del os.environ[key]
+
+
+def deterministic_train_step(mesh, *args):
+    """parallel.programs.train_step on a launched rank, under torch's
+    deterministic algorithms."""
+    from thinshelllab_torch.parallel import programs
+
+    with deterministic():
+        return programs.train_step(mesh, *args)
+
+
+def mesh_actions(n_part, B, dtype, device):
+    """MESH_B members of MESH_T steps: the pad pressing PRESS_Z a step plus
+    the JAX dryrun's seeded jitter (numpy seed 0, 1e-4 m)."""
+    dpos = np.random.default_rng(0).normal(size=(B, MESH_T, n_part, 3)) * 1e-4
+    dpos[..., 2] += PRESS_Z
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device) for a in (
+        dpos, np.zeros((B, MESH_T, n_part, 3)), np.zeros((B, MESH_T, n_part))))
+
+
+def serial_train_reference(sc, spec, s0, params, acts):
+    """The mean gripper gradient and the loss proxy of sharded_train_step
+    computed member by member without a mesh."""
+    from thinshelllab_torch.engine import adjoint, stepper
+
+    grads, loss = [], 0.0
+    for b in range(acts[0].shape[0]):
+        _, buf = stepper.simulate(spec, params, s0, tuple(a[b] for a in acts))
+        grads.append(adjoint.backward(spec, params, buf,
+                                      *sc.seed_loss(buf)).gripper_grad)
+        loss += float(torch.sum(buf["pos"][-1] ** 2))
+    return torch.stack(grads).mean(dim=0), loss
+
+
+def mesh_phase(sc, spec, s0, params, device, rewards_cmaes_cg):
+    """[mesh]: (a) sharded_train_step on a world of one over NCCL on the
+    full bench, pressing, against serial backwards, both kernels launched;
+    (b) a CMAESDriver generation through the mesh against [cmaes-cg]'s
+    (both in one summation order); (c) entry() and dryrun_multichip(1). Where the
+    machine has more cards, (a) also runs at world = device_count through
+    launch(). Returns the DIA kernel launches of (a)."""
+    import torch.distributed as dist
+
+    from thinshelllab_torch import entry as tentry
+    from thinshelllab_torch.ops import dia_spmv as K
+    from thinshelllab_torch.parallel import mesh as pmesh
+    from thinshelllab_torch.scenes import registry
+    from thinshelllab_torch.train.cmaes import CMAESDriver
+
+    acts = mesh_actions(sc.n_part, MESH_B, spec.dtype, device)
+    traj = torch.zeros((MESH_T + 1, sc.n_part, 6), dtype=spec.dtype,
+                       device=device)
+    lr = 1e-3
+    t0 = time.perf_counter()
+    mesh = pmesh.make_mesh(1)
+    try:
+        log(f"[mesh] make_mesh(1): {dist.get_backend()} world {mesh.size} on "
+            f"{mesh.device} in {time.perf_counter() - t0:.2f} s")
+
+        with deterministic():
+            K.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new_traj, loss = pmesh.sharded_train_step(
+                mesh, spec, params, s0, sc.seed_loss, acts, traj, lr)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+            t0 = time.perf_counter()
+            g_ref, loss_ref = serial_train_reference(sc, spec, s0, params,
+                                                     acts)
+            secs_ref = time.perf_counter() - t0
+        g_mesh = (traj - new_traj) / lr
+        e_g = rel_err(new_traj, traj - lr * g_ref)
+        e_loss = abs(float(loss) - loss_ref) / abs(loss_ref)
+        log(f"[mesh] (a) sharded_train_step, bench f32 T={MESH_T} B={MESH_B} "
+            f"pressing {PRESS_Z * 1e3:.1f} mm a step, world 1 over NCCL, "
+            f"deterministic algorithms: {secs:.3f} s (serial reference "
+            f"{secs_ref:.3f} s), launches {launches}; max |g_mean| "
+            f"{float(g_mesh.abs().max()):.4e}; new_traj vs traj - lr x the "
+            f"mean of {MESH_B} serial backwards max rel err {e_g:.3e} (tol "
+            f"{MESH_GRAD_RTOL:.0e}), loss proxy {float(loss):.6f} vs "
+            f"{loss_ref:.6f}, rel err {e_loss:.3e} (tol {MESH_LOSS_RTOL:.0e})")
+        if not (float(g_mesh.abs().max()) > 0 and bool(
+                torch.isfinite(new_traj).all()) and e_g <= MESH_GRAD_RTOL
+                and e_loss <= MESH_LOSS_RTOL):
+            raise AssertionError("the sharded train step disagrees with the "
+                                 "serial backwards, or has no gradient")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"[mesh] (a) launched {launches}")
+
+        cg_sc = registry.make_scene(CMAES_CG_SCENE, dtype=torch.float32,
+                                    solver="cg", max_newton_iter=CG_NEWTON)
+
+        drv = CMAESDriver(cg_sc, CMAES_TOT, CMAES_ABS, pop_size=CMAES_POP,
+                          seed=0, mesh=mesh)
+        with deterministic():
+            K.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info = drv.generation()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches_b = dict(K.LAUNCHES)
+        want = np.asarray(rewards_cmaes_cg)
+        log(f"[mesh] (b) CMAESDriver(mesh=make_mesh(1)) {CMAES_CG_SCENE} f32 "
+            f"cg, pop {CMAES_POP}, deterministic algorithms: {secs:.3f} s, "
+            f"launches {launches_b}; rewards {info['rewards'].tolist()}, "
+            f"stop steps {info['stop_steps']}, early {info['early']}; equal "
+            f"to [cmaes-cg]'s {want.tolist()}: "
+            f"{np.array_equal(info['rewards'], want)}")
+        if not (np.array_equal(info["rewards"], want)
+                and min(launches_b.values()) > 0):
+            raise AssertionError("the mesh's CMA-ES generation differs from "
+                                 "[cmaes-cg]'s")
+    finally:
+        mesh.close()
+
+    t0 = time.perf_counter()
+    fn, args = tentry.entry()
+    pos = fn(*args)
+    torch.cuda.synchronize()
+    log(f"[mesh] (c) entry(): positions {tuple(pos.shape)} {pos.dtype} on "
+        f"{pos.device} in {time.perf_counter() - t0:.2f} s, finite "
+        f"{bool(torch.isfinite(pos).all())}")
+    if not bool(torch.isfinite(pos).all()):
+        raise AssertionError("entry() gave non-finite positions")
+    t0 = time.perf_counter()
+    dry = tentry.dryrun_multichip(1)
+    log(f"[mesh] (c) dryrun_multichip(1): {time.perf_counter() - t0:.2f} s "
+        f"(a spawned NCCL rank), loss proxies dense {dry['dense']:.6f}, "
+        f"cg-dia {dry['cg-dia']:.6f}, the cg step's launches "
+        f"{dry['launches']}")
+    if min(dry["launches"].values()) <= 0:
+        raise AssertionError("dryrun_multichip(1)'s cg step launched "
+                             f"{dry['launches']}")
+
+    if torch.cuda.device_count() < 2:
+        log("[mesh] one card on this machine: no multi-card run of (a)")
+    else:
+        mesh_multicard(sc, spec, s0, params, device)
+    return launches
+
+
+def mesh_multicard(sc, spec, s0, params, device):
+    """[mesh] (a) at world = device_count through launch(), one member a
+    card, under deterministic algorithms, against the serial backwards of
+    the same members."""
+    from thinshelllab_torch.parallel import mesh as pmesh
+
+    n, lr = torch.cuda.device_count(), 1e-3
+    traj = torch.zeros((MESH_T + 1, sc.n_part, 6), dtype=spec.dtype,
+                       device=device)
+    acts_n = mesh_actions(sc.n_part, n, spec.dtype, device)
+    t0 = time.perf_counter()
+    out = pmesh.launch(deterministic_train_step, n, None, "bench", BENCH_CFG,
+                       tuple(a.cpu().numpy() for a in acts_n),
+                       traj.cpu().numpy(), lr, timeout=600)
+    secs = time.perf_counter() - t0
+    with deterministic():
+        g_ref, loss_ref = serial_train_reference(sc, spec, s0, params,
+                                                 acts_n)
+    e_g = rel_err(out["new_traj"], (traj - lr * g_ref).cpu())
+    e_loss = abs(float(out["loss"]) * n - loss_ref) / abs(loss_ref)
+    log(f"[mesh] (a) at world {n} over NCCL, one member a card, under "
+        f"deterministic algorithms: {secs:.2f} s with the ranks' start; "
+        f"rank 0 launches {out['launches']}; new_traj vs serial max rel err "
+        f"{e_g:.3e}, loss proxy x {n} vs serial {e_loss:.3e}")
+    if not (e_g <= MESH_GRAD_RTOL and e_loss <= MESH_LOSS_RTOL
+            and min(out["launches"].values()) > 0):
+        raise AssertionError(f"the {n}-card train step disagrees")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: CUDA is not available; the port's "
@@ -2595,8 +2823,7 @@ def main():
         f"{time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
-    sc = bench_scene.make(cloth_N=70, table_n=12, dtype=torch.float32,
-                          hess_refresh=8, fwd_tol=1e-3, max_newton_iter=8)
+    sc = bench_scene.make(**BENCH_CFG)
     s = sc.spec
     log(f"[scene] bench cloth_N=70 built on the host in "
         f"{time.perf_counter() - t0:.2f} s: NV {s.NV}, faces "
@@ -2697,10 +2924,12 @@ def main():
     timed("scenes-trajopt", scenes_trajopt_phase, device)
     timed("dp", dp_phase, device)
     timed("cmaes-golden", cmaes_golden_check, device)
-    timed("cmaes", cmaes_phase, device, "folding", solver="auto")
-    launches_cmaes_cg, _ = timed("cmaes-cg", cmaes_phase, device,
-                                 CMAES_CG_SCENE, solver="cg",
-                                 max_newton_iter=CG_NEWTON)
+    timed("cmaes", cmaes_phase, device, "folding", solver="auto",
+          max_newton_iter=TRAJOPT_NEWTON)
+    with deterministic():
+        launches_cmaes_cg, _, rewards_cmaes_cg = timed(
+            "cmaes-cg", cmaes_phase, device, CMAES_CG_SCENE, solver="cg",
+            max_newton_iter=CG_NEWTON)
     for name, n in launches_cmaes_cg.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
@@ -2713,6 +2942,8 @@ def main():
     timed("cg-trajopt", cg_trajopt_phase, device)
     k40, launches_40k = timed("bench-40k", bench40k_phase, device)
     timed("self-contact-late", self_contact_phase, device, "late")
+    launches_mesh = timed("mesh", mesh_phase, sc, spec, s0, params, device,
+                          rewards_cmaes_cg)
     for name in launches_cg:
         if launches_cg[name] <= 0 or launches_40k[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the cg "
@@ -2744,6 +2975,7 @@ def main():
              launches_bench_40k=launches_40k[name],
              launches_cmaes_cg=launches_cmaes_cg[name],
              launches_render=launches_render[name],
+             launches_mesh=launches_mesh[name],
              plans=plans(name), **kres[name])
         for name in ("dia_spmv", "dia_precond")]}))
     print(smi)

@@ -13,7 +13,8 @@ holds the CUDA run against.
   relative of JAX's, stop steps and early flags equal, the strategy's mean
   and sigma after `tell` within 1e-9.
 - A JAX driver carried across (`convert.cmaes_driver_from_reference`):
-  its next ask and best agent equal JAX's.
+  its next ask and best agent equal JAX's; onto a port mesh, it takes the
+  mesh's device.
 
 Regenerate the golden file (after a deliberate change of the reference):
     PYTHONPATH=. python tests/test_torch_cmaes.py
@@ -92,6 +93,7 @@ def test_driver_carried_from_jax():
     from thinshelllab_tpu.scenes import folding as jfolding
     from thinshelllab_tpu.train.cmaes import CMAESDriver as JDriver
     from thinshelllab_torch.core.convert import cmaes_driver_from_reference
+    from thinshelllab_torch.parallel.mesh import Mesh
 
     jdrv = JDriver(jfolding.make(**GEN_CFG), 6, 3, pop_size=5, sigma=0.7,
                    seed=4, skip_first=2)
@@ -108,12 +110,27 @@ def test_driver_carried_from_jax():
     np.testing.assert_array_equal(drv.es.ask(), jdrv.es.ask())
     np.testing.assert_array_equal(drv.best_agent().traj,
                                   jdrv.best_agent().traj)
+    mesh = Mesh(size=5, rank=4, device=torch.device("cpu"))
+    on_mesh = cmaes_driver_from_reference(jdrv, folding.make(**GEN_CFG),
+                                          device="cuda", mesh=mesh)
+    assert on_mesh.mesh is mesh and on_mesh.device == mesh.device
 
 
 def test_driver_rejects_a_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A mesh is a parallel.mesh.Mesh over which the population splits
+    evenly, on the driver's device (tests/test_torch_parallel.py runs the
+    sharded generation)."""
+    from thinshelllab_torch.parallel.mesh import Mesh
+
+    with pytest.raises(TypeError, match="mesh"):
         CMAESDriver(folding.make(**GEN_CFG), TOT, ABS, mesh=object(),
                     device="cpu")
+    cpu2 = Mesh(size=2, rank=1, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="does not split"):
+        CMAESDriver(folding.make(**GEN_CFG), TOT, ABS, pop_size=5, mesh=cpu2)
+    with pytest.raises(ValueError, match="not the mesh's"):
+        CMAESDriver(folding.make(**GEN_CFG), TOT, ABS, mesh=cpu2,
+                    device="cuda")
 
 
 def test_cli_cmaes_cpu(tmp_path, capsys, monkeypatch):

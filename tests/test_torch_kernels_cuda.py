@@ -22,7 +22,9 @@ published size against the same step on the CPU. The policy-search
 layers: one CMAESDriver generation on forming under solver="cg" (finite,
 both kernels launched) and one PPO update in f64 against the same update
 on the CPU. The preview's triangle fill (render/raster.py) against the
-same fill on the CPU, pixel for pixel.
+same fill on the CPU, pixel for pixel. The mesh (parallel/mesh.py):
+sharded population rewards on a world of one over NCCL against the serial
+rollouts, and a mesh of more cards than there are refused.
 """
 import dataclasses
 import types
@@ -632,3 +634,61 @@ def test_raster_fill_matches_cpu(cuda):
     assert torch.equal(
         raster.fill_triangles(tri.to(cuda), 200, 200, chunk=1 << 16).cpu(),
         raster.fill_triangles(tri, 200, 200, chunk=1 << 16))
+
+
+@pytest.mark.cuda
+def test_sharded_population_rewards_on_an_nccl_world_of_one(cuda):
+    """sharded_population_rewards on a world of one over NCCL equals the
+    serial batched_rollout_rewards on the card: the small bench under cg
+    in f64, two members pressing 2 mm a step (the cloth jittered by 1e-6
+    m, as the CPU tests do, so that no contact query sits at an exact
+    tie), and the rollouts went through both kernels. The two runs sum
+    their scatter-adds with atomics in another order, and CG stops at its
+    tolerance: 1e-9 relative."""
+    from thinshelllab_torch.parallel import mesh as pmesh
+
+    sc = bench_scene.make(cloth_N=8, table_n=4, dtype=torch.float64,
+                          solver="cg", max_newton_iter=2, cg_max_iter=40,
+                          cg_tol=1e-8)
+    spec, s0, params = sc.to(cuda)
+    n_cloth = 9 ** 2
+    pos0 = s0.pos.cpu().numpy().copy()
+    pos0[:n_cloth] += 1e-6 * np.random.default_rng(0).normal(size=(n_cloth,
+                                                                   3))
+    s0 = s0.replace(pos=torch.as_tensor(pos0, device=cuda))
+    rng = np.random.default_rng(3)
+    dpos = rng.normal(size=(2, 2, 1, 3)) * 1e-4
+    dpos[..., 2] -= 2e-3
+    acts = tuple(torch.as_tensor(a, device=cuda) for a in (
+        dpos, np.zeros((2, 2, 1, 3)), np.zeros((2, 2, 1))))
+    reward = sc.rewards["default"]
+    mesh = pmesh.make_mesh(1)
+    try:
+        assert (mesh.size, mesh.rank, mesh.device) == (1, 0, cuda)
+        K.reset_launches()
+        got = pmesh.sharded_population_rewards(mesh, spec, params, s0, acts,
+                                               reward)
+        launches = dict(K.LAUNCHES)
+    finally:
+        mesh.close()
+    want = pmesh.batched_rollout_rewards(spec, params, s0, acts, reward)
+    print(f"rewards {got.tolist()} vs {want.tolist()}, launches {launches}")
+    assert got.shape == (2,) and got.device == cuda
+    assert min(launches.values()) > 0, launches
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-9, atol=0)
+
+
+@pytest.mark.cuda
+def test_mesh_refuses_more_cards_than_there_are(cuda):
+    """make_mesh and dryrun_multichip raise, before any rank starts, when
+    asked for more cards than the machine has; nothing moves to gloo or
+    the CPU."""
+    from thinshelllab_torch import entry
+    from thinshelllab_torch.parallel import mesh as pmesh
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match="cards asked for"):
+        pmesh.make_mesh(n)
+    with pytest.raises(RuntimeError, match="cards asked for"):
+        entry.dryrun_multichip(n)

@@ -168,17 +168,19 @@ def cmaes_from_reference(es):
     return out
 
 
-def cmaes_driver_from_reference(drv, scene, device="cpu"):
+def cmaes_driver_from_reference(drv, scene, device="cpu", mesh=None):
     """The port's CMAESDriver on the port's `scene` (its rewards are the
     port's own) with a JAX `CMAESDriver`'s settings, whole strategy state
-    (cmaes_from_reference) and reward history."""
+    (cmaes_from_reference) and reward history. A JAX driver that held a
+    device mesh is carried onto the port's `mesh` (a parallel.mesh.Mesh),
+    whose device it then takes."""
     from ..train.cmaes import CMAESDriver
 
     out = CMAESDriver(scene, drv.tot_timestep, drv.abs_step,
                       pop_size=drv.pop_size, sigma=drv.sigma,
                       reward_name=drv.reward_name, max_dist=drv.max_dist,
-                      seed=drv.seed, skip_first=drv.skip_first,
-                      device=device)
+                      seed=drv.seed, skip_first=drv.skip_first, mesh=mesh,
+                      device=device if mesh is None else mesh.device)
     out.es = cmaes_from_reference(drv.es)
     out.history = list(drv.history)
     return out

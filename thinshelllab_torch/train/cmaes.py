@@ -7,7 +7,9 @@ port's ask/tell sequence is the JAX package's. `CMAESDriver` evaluates
 each generation's population one member after another, each a
 `stepper.simulate` on the driver's device; the JAX package vmaps the
 population into one program instead (a batched population is perf work,
-ROADMAP.md).
+ROADMAP.md). With a mesh (`parallel.mesh.make_mesh`) each rank evaluates
+its block of the population and the results are all-gathered in member
+order, as the JAX driver's shard_map does.
 
 Genome encoding matches the reference (:88-114): abs_step x 6 x n_part
 deltas in [0,10] around 5, scaled by scaling = 5/(sub_steps*3e-4) for
@@ -24,6 +26,7 @@ import torch
 from ..agent.traj_opt import TrajAgent
 from ..core.spec import GripperState, SimState
 from ..engine import stepper
+from ..parallel.mesh import Mesh, all_gather_blocks, block
 from ..scenes.base import TaskScene, effector_total_forces, resolve_device
 
 
@@ -199,8 +202,14 @@ class CMAESDriver:
 
     `max_dist` is kept as the JAX driver keeps it: the JAX driver decodes
     every genome with decode_genome's own limit of 0.015 and never reads
-    the field, and so does this one (ROADMAP.md §3). `mesh` (the JAX
-    package's population sharding) is accepted only as None."""
+    the field, and so does this one (ROADMAP.md §3).
+
+    `mesh` (a `parallel.mesh.Mesh`) shards the population over its ranks:
+    every rank holds the same strategy, so it asks the same genomes,
+    evaluates its contiguous block of members on the mesh's device, and
+    all-gathers the rewards, stop steps and early flags in member order;
+    every rank then makes the same tell and the ranks stay in lockstep.
+    The population must split evenly over the mesh."""
 
     scene: TaskScene
     tot_timestep: int
@@ -216,13 +225,20 @@ class CMAESDriver:
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise NotImplementedError(
-                "CMAESDriver(mesh=...): the population is not sharded over "
-                "cards in this package (ROADMAP.md queue 1, item 9)")
+            if not isinstance(self.mesh, Mesh):
+                raise TypeError(f"CMAESDriver(mesh=...): a parallel.mesh."
+                                f"Mesh, not {type(self.mesh).__name__}")
+            if (self.device is not None
+                    and torch.device(self.device) != self.mesh.device):
+                raise ValueError(f"CMAESDriver: device {self.device} is not "
+                                 f"the mesh's {self.mesh.device}")
+            self.device = self.mesh.device
         self.device = resolve_device(self.device, "CMAESDriver")
         n_part = self.scene.n_part
         self.es = CMAES(np.full(self.abs_step * 6 * n_part, 5.0), self.sigma,
                         popsize=self.pop_size, seed=self.seed)
+        if self.mesh is not None:
+            block(self.mesh, self.es.lam)  # the population must split evenly
         self.spec, self.state0, self.params = self.scene.to(self.device)
         self.reward_fn = self.scene.rewards[self.reward_name]
         self.history = []
@@ -246,7 +262,16 @@ class CMAESDriver:
         this generation's best and mean, and each member's reward, stop
         step and early flag."""
         X = self.es.ask()
-        runs = [self.evaluate(self._decode(x).actions()) for x in X]
+        lo, hi = (0, len(X)) if self.mesh is None else block(self.mesh,
+                                                              len(X))
+        runs = [self.evaluate(self._decode(x).actions()) for x in X[lo:hi]]
+        if self.mesh is not None:
+            # (reward, stop step, early) rows of every rank, member order;
+            # the stop steps and flags are small integers, exact in float64
+            rows = all_gather_blocks(self.mesh, torch.tensor(
+                runs, dtype=torch.float64).reshape(-1, 3))
+            runs = [(float(r), int(s), bool(e))
+                    for r, s, e in rows.cpu().tolist()]
         rewards = np.array([r[0] for r in runs])
         self.es.tell(X, -rewards)
         self.history.extend((-rewards).tolist())
