@@ -10,11 +10,17 @@ would be zero), from the grid jittered by 1e-6 m (numpy seed 0, as in
 test_torch_stepper.py). adj_tol 1e-10 keeps every GMRES iteration count
 away from its exit test, so both packages take the same iterations.
 
-Regenerate the golden file (after a deliberate change of the reference):
-    python tests/test_torch_adjoint.py
+The JAX reference's tape and outputs are stored in
+tests/data/bench8_adjoint_reference_golden.npz, which the tests read; only
+test_golden_file_is_current (marked slow) runs the JAX package, and holds
+both golden files to what it computes today.
+
+Regenerate the golden files (after a deliberate change of the reference):
+    OPENBLAS_NUM_THREADS=1 PYTHONPATH=. python tests/test_torch_adjoint.py
 """
 import dataclasses
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -30,14 +36,18 @@ from thinshelllab_tpu.engine import stepper as jstepper
 from thinshelllab_tpu.ops import spd as jspd
 from thinshelllab_tpu.scenes import bench_scene as jbench
 from thinshelllab_torch.core.convert import buffers_from_reference
+from thinshelllab_torch.core.spec import ContactSet
 from thinshelllab_torch.engine import adjoint, elements, gridsolve, solver
 from thinshelllab_torch.engine import stepper
 from thinshelllab_torch.ops import spd
 from thinshelllab_torch.scenes import bench_scene
+import _golden
 from _torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                       "bench8_adjoint_golden.npz")
+REFERENCE = os.path.join(os.path.dirname(__file__), "data",
+                         "bench8_adjoint_reference_golden.npz")
 CFG = dict(cloth_N=8, table_n=4, solver="cg", hess_refresh=8,
            max_newton_iter=4, fwd_tol=1e-10, adj_tol=1e-10)
 T = 4
@@ -140,6 +150,14 @@ def _reference():
                 op=tonp(op), zrF=tuple(np.asarray(v) for v in (z, r, F)))
 
 
+def _golden_tree(r):
+    """_reference()'s outputs as REFERENCE stores them: the tape under
+    "tape", the A sweep without the Params cotangent it does not compute."""
+    return dict(pos0=r["pos0"], zrF=np.stack(r["zrF"]), tape=r["buf"],
+                A={k: r["A"][k] for k in ("gg", "iters", "pos_grad0")},
+                B=r["B"], op=r["op"])
+
+
 def _by_step(ggs):
     """(T+1, n_part, 6) from the sweep-order rows t = T .. 1."""
     out = np.zeros((T + 1,) + ggs.shape[1:])
@@ -149,7 +167,13 @@ def _by_step(ggs):
 
 @pytest.fixture(scope="module")
 def ref():
-    return _reference()
+    """REFERENCE in _reference()'s shapes: the tape's ContactSet as the
+    port's dataclass, the Params cotangent as a namespace of its fields."""
+    g = _golden.load(REFERENCE)
+    g["tape"]["contact"] = ContactSet(**g["tape"]["contact"])
+    g["B"]["param_grad"] = types.SimpleNamespace(**g["B"]["param_grad"])
+    return dict(pos0=g["pos0"], buf=g["tape"], A=g["A"], B=g["B"],
+                op=g["op"], zrF=tuple(g["zrF"]))
 
 
 @pytest.fixture(scope="module")
@@ -322,13 +346,16 @@ def test_save_contacts_tape_matches_jax(port, ref):
             np.testing.assert_array_equal(got.numpy(), w, err_msg=f.name)
 
 
-def test_golden_file_is_current(ref):
-    """The saved golden gradients are what JAX computes today."""
+@pytest.mark.slow
+def test_golden_file_is_current():
+    """The saved golden gradients, and the reference the other tests read,
+    are what JAX computes today."""
+    live = _reference()
     g = np.load(GOLDEN)
-    A = ref["A"]
-    np.testing.assert_array_equal(g["pos0"], ref["pos0"])
+    A = live["A"]
+    np.testing.assert_array_equal(g["pos0"], live["pos0"])
     np.testing.assert_array_equal(g["dpos"], _actions()[0])
-    np.testing.assert_allclose(g["pos"], ref["buf"]["pos"], rtol=0,
+    np.testing.assert_allclose(g["pos"], live["buf"]["pos"], rtol=0,
                                atol=1e-12)
     assert _rel(g["gripper_grad"], _by_step(A["gg"])) < GRAD_RTOL
     assert _rel(g["pos_grad0"], A["pos_grad0"]) < GRAD_RTOL
@@ -337,6 +364,21 @@ def test_golden_file_is_current(ref):
         assert int(g[key]) == CFG[key]
     assert float(g["fwd_tol"]) == CFG["fwd_tol"]
     assert float(g["adj_tol"]) == CFG["adj_tol"]
+    _golden.assert_current(REFERENCE, _golden_tree(live), _assert_entry)
+
+
+def _assert_entry(key, got, want):
+    if not np.issubdtype(want.dtype, np.floating):
+        np.testing.assert_array_equal(got, want, err_msg=key)
+    elif key.startswith(("pos0", "tape.pos", "zrF")):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12,
+                                   err_msg=key)
+    else:
+        # the operator stages at OP_RTOL, solutions and gradients at
+        # GRAD_RTOL, as the tests hold the port to them
+        tol = (OP_RTOL if key.startswith("op.")
+               and key not in ("op.x", "op.xd") else GRAD_RTOL)
+        assert _rel(got, want) < tol, key
 
 
 def test_float32_backward_stays_float32():
@@ -400,6 +442,7 @@ def test_unported_branches_raise(operator, ref, port, monkeypatch):
 
 def _write_golden():
     r = _reference()
+    _golden.save(REFERENCE, _golden_tree(r))
     A = r["A"]
     np.savez_compressed(
         GOLDEN, pos0=r["pos0"], dpos=_actions()[0], pos=r["buf"]["pos"],

@@ -10,7 +10,16 @@ dense solver). The pad follows a seeded 4-step action table (0.3 mm down
 a step plus seeded sideways moves and turns). On this table no query
 vertex sits at a contact threshold, so both packages take the same
 contacts without a jitter.
+
+The JAX package's outputs (its rollout, backward, contact set and the
+evaluations at the perturbed state) are in
+tests/data/folding_reference_golden.npz. Regenerate it (after a deliberate
+change of the reference):
+    OPENBLAS_NUM_THREADS=1 PYTHONPATH=. python tests/test_torch_folding.py
 """
+import os
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,11 +33,15 @@ from thinshelllab_tpu.engine import stepper as jstepper
 from thinshelllab_tpu.ops import spd as jspd
 from thinshelllab_tpu.scenes import folding as jfolding
 from thinshelllab_torch.core.convert import from_reference
+from thinshelllab_torch.core.spec import ContactSet
 from thinshelllab_torch.engine import adjoint, elements, solver, stepper
 from thinshelllab_torch.ops import spd
 from thinshelllab_torch.scenes import folding
+import _golden
 from _torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
+REFERENCE = os.path.join(os.path.dirname(__file__), "data",
+                         "folding_reference_golden.npz")
 CFG = dict(table_n=4, max_newton_iter=30)
 N_STEPS = 4  # a waypoint table of T=5 rows
 ALPHAS = (0.0, 0.5, 1.0)
@@ -71,10 +84,11 @@ def scenes():
     return jfolding.make(**CFG), folding.make(**CFG)
 
 
-@pytest.fixture(scope="module")
-def ref(scenes):
-    """Every JAX quantity of the file, from one jitted program."""
-    jsc = scenes[0]
+def _reference():
+    """Every JAX quantity of the file, from one jitted program, as REFERENCE
+    stores them: the buffers, the backward's two gradients, the contact set
+    and the evaluations at the perturbed state."""
+    jsc = jfolding.make(**CFG)
     spec, params = jsc.spec, jsc.params
     s0 = jax.tree.map(jnp.asarray, jsc.state0)
 
@@ -99,9 +113,40 @@ def ref(scenes):
         return buf, res, contact, evals
 
     pert, pdir = _perturbations(spec)
-    out = jax.jit(run)(s0, tuple(jnp.asarray(a) for a in _actions()),
-                       jnp.asarray(pert), jnp.asarray(pdir))
-    return jax.tree.map(np.asarray, out)
+    buf, res, contact, evals = jax.jit(run)(
+        s0, tuple(jnp.asarray(a) for a in _actions()), jnp.asarray(pert),
+        jnp.asarray(pdir))
+    res = dict(gripper_grad=res.gripper_grad, pos_grad0=res.pos_grad0)
+    return jax.tree.map(np.asarray, dict(buf=buf, res=res, contact=contact,
+                                         evals=evals))
+
+
+def assert_reference_entry(key, got, want):
+    """One entry of REFERENCE against its recomputed value, at the
+    tolerance the tests hold the port to it."""
+    if not np.issubdtype(want.dtype, np.floating):
+        np.testing.assert_array_equal(got, want, err_msg=key)
+    elif key == "buf.ref_angle":
+        np.testing.assert_allclose(got, want, rtol=0, atol=REF_ATOL,
+                                   err_msg=key)
+    elif key.startswith("buf."):
+        np.testing.assert_allclose(got, want, rtol=0, atol=POS_ATOL,
+                                   err_msg=key)
+    elif key == "evals.p":
+        assert _rel(got, want) < 1e-9, key
+    else:
+        # the gradients at GRAD_RTOL; the evaluations, and the contact set
+        # they read, at EVAL_RTOL
+        tol = GRAD_RTOL if key.startswith("res.") else EVAL_RTOL
+        assert _rel(got, want) < tol, key
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """REFERENCE as (buffers, backward, contact set, evaluations)."""
+    g = _golden.load(REFERENCE)
+    return (g["buf"], types.SimpleNamespace(**g["res"]),
+            ContactSet(**g["contact"]), g["evals"])
 
 
 @pytest.fixture(scope="module")
@@ -219,3 +264,9 @@ def test_backward_matches_jax(port, ref):
     assert float(np.abs(jres.gripper_grad).max()) > 0
     assert _rel(res.gripper_grad, jres.gripper_grad) < GRAD_RTOL
     assert _rel(res.pos_grad0, jres.pos_grad0) < GRAD_RTOL
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    _golden.save(REFERENCE, _reference())

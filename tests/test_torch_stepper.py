@@ -7,8 +7,13 @@ contact queries sit at exact ties between coplanar faces, which the JAX
 package itself breaks differently under jit and op by op; the jitter makes
 every face choice robust to summation order.
 
-Regenerate the golden file (after a deliberate change of the reference):
-    python tests/test_torch_stepper.py
+The JAX rollouts the tests compare with are stored in
+tests/data/bench8_rollout_reference_golden.npz; only
+test_golden_file_is_current (marked slow) runs the JAX package, and holds
+both golden files to what it computes today.
+
+Regenerate the golden files (after a deliberate change of the reference):
+    OPENBLAS_NUM_THREADS=1 PYTHONPATH=. python tests/test_torch_stepper.py
 """
 import os
 
@@ -22,11 +27,16 @@ from thinshelllab_tpu.engine import stepper as jstepper
 from thinshelllab_tpu.scenes import bench_scene as jbench
 from thinshelllab_torch.engine import stepper
 from thinshelllab_torch.scenes import bench_scene
+import _golden
 from _torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "bench8_golden.npz")
+REFERENCE = os.path.join(os.path.dirname(__file__), "data",
+                         "bench8_rollout_reference_golden.npz")
 CFG = dict(cloth_N=8, table_n=4, solver="cg", hess_refresh=8,
            max_newton_iter=4, fwd_tol=1e-10)
+# the rollouts REFERENCE keeps, by name
+REFERENCE_CFGS = {"default": CFG, "refresh1": {**CFG, "hess_refresh": 1}}
 T = 2
 # positions in metres (scene 0.1 m, 8e-4 m of motion over the rollout):
 # same arithmetic, sums in another order
@@ -56,9 +66,24 @@ def _jax_rollout(cfg=CFG):
                   ("pos", "yield_gate", "final_proj_flag", "final_proj_dir")}
 
 
+def _reference_tree():
+    """Every rollout of REFERENCE_CFGS, by name, as its pos0 and buffers."""
+    tree = {}
+    for name, cfg in REFERENCE_CFGS.items():
+        pos0, jbuf = _jax_rollout(cfg)
+        tree[name] = dict(pos0=pos0, **jbuf)
+    return tree
+
+
+def _stored_rollout(name):
+    """(pos0, buffers) of one rollout, as _jax_rollout returns them."""
+    jbuf = _golden.load(REFERENCE)[name]
+    return jbuf.pop("pos0"), jbuf
+
+
 @pytest.fixture(scope="module")
 def rollouts():
-    pos0, jbuf = _jax_rollout()
+    pos0, jbuf = _stored_rollout("default")
     sc = bench_scene.make(dtype=torch.float64, **CFG)
     spec, s0, params = sc.to("cpu")
     s0 = s0.replace(pos=torch.as_tensor(pos0))
@@ -85,15 +110,27 @@ def test_simulate_matches_jax(rollouts):
     assert stats["hess_builds"] == T and stats["cg_iters"] > 0
 
 
-def test_golden_file_is_current(rollouts):
-    """The saved golden positions are what JAX computes today."""
-    pos0, jbuf, _tbuf, _stats = rollouts
+@pytest.mark.slow
+def test_golden_file_is_current():
+    """The saved golden positions, and the rollouts the other tests read,
+    are what JAX computes today."""
+    want = _reference_tree()
     g = np.load(GOLDEN)
-    np.testing.assert_array_equal(g["pos0"], pos0)
-    np.testing.assert_allclose(g["pos"], jbuf["pos"], rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(g["pos0"], want["default"]["pos0"])
+    np.testing.assert_allclose(g["pos"], want["default"]["pos"], rtol=0,
+                               atol=1e-12)
     for key in ("cloth_N", "table_n", "max_newton_iter"):
         assert int(g[key]) == CFG[key]
     assert float(g["fwd_tol"]) == CFG["fwd_tol"]
+    _golden.assert_current(REFERENCE, want, _assert_entry)
+
+
+def _assert_entry(key, got, want):
+    if key.endswith(".pos"):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12,
+                                   err_msg=key)
+    else:
+        np.testing.assert_array_equal(got, want, err_msg=key)
 
 
 def test_float32_rollout_stays_float32():
@@ -125,8 +162,8 @@ def test_refresh_one_branch_raises():
     """The hess_refresh=1 branch (full Newton: Hessian, residual and CG
     solve every iteration, an energy-only line search), which raised
     before it was ported, against JAX's on 'cg' through the DIA path."""
-    cfg = {**CFG, "hess_refresh": 1}
-    pos0, jbuf = _jax_rollout(cfg)
+    cfg = REFERENCE_CFGS["refresh1"]
+    pos0, jbuf = _stored_rollout("refresh1")
     sc = bench_scene.make(dtype=torch.float64, **cfg)
     spec, s0, params = sc.to("cpu")
     assert spec.dia is not None and spec.solver == "cg"
@@ -146,9 +183,11 @@ def test_refresh_one_branch_raises():
 
 
 def _write_golden():
-    pos0, jbuf = _jax_rollout()
+    tree = _reference_tree()
+    _golden.save(REFERENCE, tree)
     np.savez_compressed(
-        GOLDEN, pos0=pos0, pos=jbuf["pos"], cloth_N=CFG["cloth_N"],
+        GOLDEN, pos0=tree["default"]["pos0"], pos=tree["default"]["pos"],
+        cloth_N=CFG["cloth_N"],
         table_n=CFG["table_n"], max_newton_iter=CFG["max_newton_iter"],
         fwd_tol=CFG["fwd_tol"])
 

@@ -8,8 +8,14 @@ The small scene is `folding.make(table_n=4, max_newton_iter=30)` (see
 tests/test_torch_folding.py) with a T=5 waypoint table, lr 1e-3 and
 max_dist 0.015; the table starts at zero, as the CLI's does.
 
-Regenerate the golden file (after a deliberate change of the reference):
-    python tests/test_torch_trajopt.py
+The tests read the JAX TrajOptDriver's run from the golden file; only
+test_golden_file_is_current (marked slow) runs it, and holds the file, and
+tests/test_torch_folding.py's reference on the same scene, to what the JAX
+package computes today.
+
+Regenerate the golden file (after a deliberate change of the reference),
+with one OpenBLAS thread as the tests run:
+    OPENBLAS_NUM_THREADS=1 PYTHONPATH=. python tests/test_torch_trajopt.py
 """
 import os
 import re
@@ -32,6 +38,8 @@ from thinshelllab_torch.core.convert import (adam_state_from_reference,
 from thinshelllab_torch.optim.adam import Adam
 from thinshelllab_torch.scenes import folding, registry
 from thinshelllab_torch.train.trajopt import TrajOptDriver
+import _golden
+import test_torch_folding
 from _torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data",
@@ -130,7 +138,8 @@ def _reference():
 
 @pytest.fixture(scope="module")
 def ref():
-    return _reference()
+    with np.load(GOLDEN) as g:
+        return dict(g)
 
 
 @pytest.fixture(scope="module")
@@ -168,8 +177,12 @@ def test_driver_iterations_match_jax(port, ref):
         assert info["forward_s"] > 0 and info["backward_s"] > 0
 
 
-def test_golden_file_is_current(ref):
-    """The saved golden run is what JAX computes today."""
+@pytest.mark.slow
+@pytest.mark.timeout(900)
+def test_golden_file_is_current():
+    """The saved golden run, and test_torch_folding's reference, are what
+    JAX computes today."""
+    ref = _reference()
     g = np.load(GOLDEN)
     for key in ("pos", "ref_angle", "gripper_grad", "rewards", "grad_norms",
                 "traj"):
@@ -179,6 +192,11 @@ def test_golden_file_is_current(ref):
     for key in ("table_n", "max_newton_iter", "T"):
         assert int(g[key]) == ref[key]
     assert (float(g["lr"]), float(g["max_dist"])) == (LR, MAX_DIST)
+    # test_torch_folding's reference, on the same scene
+    assert test_torch_folding.CFG == CFG
+    _golden.assert_current(test_torch_folding.REFERENCE,
+                           test_torch_folding._reference(),
+                           test_torch_folding.assert_reference_entry)
 
 
 def test_cli_trajopt_cpu_full_size(tmp_path, capsys):
