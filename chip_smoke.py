@@ -1,6 +1,7 @@
 """Smoke run of thinshelllab_torch on one CUDA card.
 
-Builds the two DIA kernels (csrc/dia_spmv.cu) with nvcc, holds each against
+Builds the two DIA kernels (csrc/dia_spmv.cu) and the two element kernels
+(csrc/elements.cu) with nvcc, holds each DIA kernel against
 its plain PyTorch version (and times a PyTorch sparse product beside
 dia_spmv) on the full bench scene's assembled operator, with the L2 warm
 from the call before and cold (a 64 MiB buffer written between calls),
@@ -21,7 +22,9 @@ A short bench forward then takes the full-Newton branch (hess_refresh=1)
 through both kernels.
 
 The folding task's trajectory optimisation follows, on the dense solve
-(no hand kernel: cuSOLVER's batched eigh, the LU solve): the small f64
+(no DIA kernel: cuSOLVER's batched eigh, the LU solve; the element kernels
+build every Hessian, and [folding-trajopt] holds their launches to the
+Hessian builds plus the backward steps): the small f64
 folding trajopt against the JAX package's saved run
 (tests/data/folding_trajopt_golden.npz), then the published scene in f32
 through `registry.make_scene("folding", solver="auto")` and
@@ -83,6 +86,14 @@ small f64 bench against the JAX run (tests/data/bend_batch_golden.npz);
 step, which must name both kernels; [native] holds the native helper's
 cloth tables, hinges and cube lattices against the numpy paths.
 
+[element-kernels], after [profile-trace], holds the element layer's two
+kernels (ops/element_kernels, csrc/elements.cu; every all_groups call of
+the run goes through them) against the plain torch.func route
+(elements.plain_groups) on the published folding scene pressed 3 steps
+and on forming under cg, in f64 and f32, and times each kernel at
+folding's shapes beside its byte bound, and the whole all_groups call on
+both routes.
+
 [mesh], last (parallel/mesh.py and entry.py): sharded_train_step on a
 world of one over NCCL on the full bench in f32, the pad pressing, against
 the mean of serial backwards (both kernels launched: `launches_mesh`); one
@@ -93,7 +104,12 @@ cards, the train step at world = device_count as well.
 
     python3 chip_smoke.py
 
-Prints one line per phase, then a JSON line of per-kernel results, the
+Every phase that builds a Hessian on the card is held to its element
+kernel launches: element_eval as many as element_fuse, more than none, and
+where the phase can count them, one of each for every Hessian build and
+every backward step. Prints one line per phase, then a JSON line of
+per-kernel results (with each kernel's launches on every path the run
+drove, `launches_<path>`), the
 card's `nvidia-smi` name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises, exits non-zero and
 prints no result line. Needs CUDA; there is no CPU path.
@@ -331,6 +347,32 @@ def log(msg):
     print(msg, flush=True)
 
 
+def reset_launches():
+    """Zero the launch counters of the DIA and the element kernels."""
+    from thinshelllab_torch.ops import dia_spmv, element_kernels
+
+    dia_spmv.reset_launches()
+    element_kernels.reset_launches()
+
+
+def launch_counts():
+    """{kernel: launches since reset_launches()} of all four kernels."""
+    from thinshelllab_torch.ops import dia_spmv, element_kernels
+
+    return {**dia_spmv.LAUNCHES, **element_kernels.LAUNCHES}
+
+
+def check_element_launches(tag, counts, want=None):
+    """The path went through the element kernels: element_eval and
+    element_fuse launched alike, more than once, and `want` times (the
+    path's all_groups calls with the Hessian) when given."""
+    n = counts["element_eval"]
+    if not (n == counts["element_fuse"] > 0 and want in (None, n)):
+        raise AssertionError(
+            f"{tag}: element kernel launches {counts}, expected "
+            f"{'> 0' if want is None else want} of each")
+
+
 def timed(name, fn, *args, **kw):
     """fn(*args, **kw), and a line with its wall seconds."""
     t0 = time.perf_counter()
@@ -544,7 +586,7 @@ def spill_check(device):
     plan, geo = precond_geometry(K, device, SPILL_NVP, offs, dtype)
     if plan.staged >= n_off:
         raise AssertionError(f"the spill store fits shared memory: {geo}")
-    K.reset_launches()
+    reset_launches()
     z = K.dia_precond(dia, r2, unf2, dinv, offs, 0.8, 3)
     torch.cuda.synchronize()
     launches = K.LAUNCHES["dia_precond"]
@@ -585,7 +627,7 @@ def kernel_checks(sc, device):
                                             sweeps)),
         }
         for name, (kern, plain) in cases.items():
-            K.reset_launches()
+            reset_launches()
             yk = kern()
             torch.cuda.synchronize()
             per_call = K.LAUNCHES[name]
@@ -673,7 +715,6 @@ def golden_adjoint_check(device):
     """The small f64 scene's forward and default backward with the kernels
     against the JAX package's gradients (the bench's no-tape path)."""
     from thinshelllab_torch.engine import adjoint, stepper
-    from thinshelllab_torch.ops import dia_spmv as K
     from thinshelllab_torch.scenes import bench_scene
 
     g = np.load(GOLDEN_ADJ)
@@ -688,14 +729,14 @@ def golden_adjoint_check(device):
     T = dpos.shape[0]
     acts = (dpos, torch.zeros_like(dpos),
             torch.zeros((T, 1), dtype=torch.float64, device=device))
-    K.reset_launches()
+    reset_launches()
     _, buf = stepper.simulate(spec, params, s0, acts)
     seeds = sc.seed_loss(buf)
     res = adjoint.backward(spec, params, buf, *seeds)
     iters = adjoint.backward(spec, params, buf, *seeds,
                              debug_iters=True).pos_grad0.cpu().numpy()
     torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     pos_err = float(np.abs(buf["pos"].cpu().numpy() - g["pos"]).max())
     gg, pg0 = res.gripper_grad.cpu().numpy(), res.pos_grad0.cpu().numpy()
     gg_rel = float(np.abs(gg - g["gripper_grad"]).max()
@@ -718,6 +759,7 @@ def golden_adjoint_check(device):
     if d_it > 2 or nonzero < 3 or launches["dia_spmv"] <= 0:
         raise AssertionError(f"golden adjoint: iteration counts off by {d_it},"
                              f" {nonzero} non-zero steps, launches {launches}")
+    check_element_launches("[golden-adjoint]", launches)
 
 
 def rollout(spec, s0, params, device, T=None, dz=None):
@@ -782,9 +824,10 @@ def adjoint_phase(sc, spec, params, buf, fwd_secs, device):
     (res, _), resid = gmres_residuals(  # warm-up
         lambda: backward(sc, spec, params, buf))
     torch.cuda.reset_peak_memory_stats(device)
-    K.reset_launches()
+    reset_launches()
     res_t, secs = backward(sc, spec, params, buf, debug_iters=True)
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
+    check_element_launches("[adjoint]", launches, T_STEPS)
     peak = torch.cuda.max_memory_allocated(device)
     iters = res_t.pos_grad0.cpu().tolist()
     gg, pg0 = res.gripper_grad, res.pos_grad0
@@ -817,7 +860,7 @@ def adjoint_phase(sc, spec, params, buf, fwd_secs, device):
         f"final relative residual) per step in the warm-up: {resid}")
 
     spec_p = spec.replace(spmv="plain")
-    K.reset_launches()
+    reset_launches()
     res_p, secs_p = backward(sc, spec_p, params, buf)
     if any(K.LAUNCHES.values()):
         raise AssertionError(f"plain backward launched kernels: {K.LAUNCHES}")
@@ -862,12 +905,11 @@ def press_phase(sc, spec, s0, params, device):
     """The full-size f32 forward+backward with the pad pressing PRESS_Z a
     step: the gripper gradient is non-zero, and the kernel and plain
     backwards agree on it."""
-    from thinshelllab_torch.ops import dia_spmv as K
-
     buf, stats, secs = rollout(spec, s0, params, device, T_PRESS, PRESS_Z)
-    K.reset_launches()
+    reset_launches()
     res, secs_b = backward(sc, spec, params, buf)
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
+    check_element_launches("[adjoint-press]", launches, T_PRESS)
     (res_p, _), resid = gmres_residuals(
         lambda: backward(sc, spec.replace(spmv="plain"), params, buf))
     gg, pg0 = res.gripper_grad, res.pos_grad0
@@ -1041,15 +1083,14 @@ def full_newton_phase(device):
     """The full-size bench forward on the full-Newton branch
     (hess_refresh=1: Hessian, operator and PCG every Newton iteration, an
     energy-only line search) through both kernels, 2 steps."""
-    from thinshelllab_torch.ops import dia_spmv as K
     from thinshelllab_torch.scenes import bench_scene
 
     sc = bench_scene.make(cloth_N=70, table_n=12, dtype=torch.float32,
                           hess_refresh=1, fwd_tol=1e-3, max_newton_iter=8)
     spec, s0, params = sc.to(device, torch.float32)
-    K.reset_launches()
+    reset_launches()
     buf, stats, secs = rollout(spec, s0, params, device, T=2)
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     log(f"[full-newton] bench f32 T=2 hess_refresh=1: {secs:.3f} s, Newton "
         f"iters {stats['newton_iters']}, operator builds "
         f"{stats['hess_builds']}, CG iters {stats['cg_iters']}, line-search "
@@ -1060,6 +1101,7 @@ def full_newton_phase(device):
             launches.values()) <= 0:
         raise AssertionError(f"full-Newton branch: stats {stats}, launches "
                              f"{launches}")
+    check_element_launches("[full-newton]", launches, stats["hess_builds"])
     return launches
 
 
@@ -1112,8 +1154,7 @@ def folding_golden_check(device):
 def folding_trajopt(device):
     """The published folding scene in f32 as the CLI builds it on a card,
     FOLD_ITERS TrajOptDriver iterations at T=FOLD_T: (scene, driver, the
-    first iteration's info)."""
-    from thinshelllab_torch.ops import dia_spmv as K
+    first iteration's info, the kernels' launches over the iterations)."""
     from thinshelllab_torch.scenes import registry
     from thinshelllab_torch.train.trajopt import TrajOptDriver
 
@@ -1129,8 +1170,8 @@ def folding_trajopt(device):
     if s.solver != "dense":
         raise AssertionError(f"folding resolved to solver '{s.solver}'")
     drv = TrajOptDriver(sc, FOLD_T, lr=1e-3, max_dist=0.015, device=device)
-    K.reset_launches()
-    first = None
+    reset_launches()
+    first, calls = None, 0
     for i in range(FOLD_ITERS):
         torch.cuda.reset_peak_memory_stats(device)
         info = drv.iteration()
@@ -1153,10 +1194,17 @@ def folding_trajopt(device):
                                  f"{info['reward']}, |g| {info['grad_norm']}")
         if first is None:
             first = info
-    launches = dict(K.LAUNCHES)
-    log(f"[folding-trajopt] DIA kernel launches over the {FOLD_ITERS} "
-        f"iterations: {launches} (the dense solve uses none)")
-    return sc, drv, first
+        # a Hessian each build in the forward and each step of the backward
+        calls += st["hess_builds"] + len(per)
+    launches = launch_counts()
+    log(f"[folding-trajopt] launches over the {FOLD_ITERS} iterations: "
+        f"{launches}; all_groups calls with the Hessian (Hessian builds + "
+        f"backward steps) {calls}")
+    check_element_launches("[folding-trajopt]", launches, calls)
+    if launches["dia_spmv"] or launches["dia_precond"]:
+        raise AssertionError(f"the dense folding path launched DIA kernels: "
+                             f"{launches}")
+    return sc, drv, first, launches
 
 
 def folding_f32_adjoint(sc, info, device):
@@ -1354,7 +1402,6 @@ def scenes_golden_check(device):
 def scenes_phase(device):
     """Every new scene at its published size and Newton cap in f64 on the
     card: SCENES_T steps forward, the default seed, the backward."""
-    from thinshelllab_torch.ops import dia_spmv as K
     from thinshelllab_torch.scenes import registry
     from thinshelllab_torch.train import dp
 
@@ -1364,9 +1411,10 @@ def scenes_phase(device):
                          device)
         s = sc.spec
         spec, s0, params = sc.to(device)
-        K.reset_launches()
+        reset_launches()
         buf, res, stats, fs, bs = scene_run(sc, spec, s0, params, SCENES_T)
-        launches = sum(K.LAUNCHES.values())
+        launches = launch_counts()
+        check_element_launches(f"[scenes] {name}", launches)
         per = stats["newton_per_step"]
         at_cap = sum(n >= s.max_newton_iter for n in per)
         pos = buf["pos"]
@@ -1380,8 +1428,8 @@ def scenes_phase(device):
             f" of {len(per)} at the cap {s.max_newton_iter}); forward "
             f"{fs:.3f} s, backward {bs:.3f} s; reward {reward:.6g}; max "
             f"|gripper_grad| {gg:.4g}; |param_grad| of "
-            f"{sc.sys_param} {pg:.4g}; max displacement {disp:.3e} m; DIA "
-            f"kernel launches {launches}")
+            f"{sc.sys_param} {pg:.4g}; max displacement {disp:.3e} m; "
+            f"launches {launches}")
         finite = bool(torch.isfinite(res.gripper_grad).all()) and all(
             bool(torch.isfinite(getattr(res.param_grad, f.name)).all())
             for f in dataclasses.fields(res.param_grad))
@@ -1506,22 +1554,21 @@ def cmaes_golden_check(device):
 def cmaes_phase(device, name, **kw):
     """One CMAESDriver generation (pop CMAES_POP, tot_step CMAES_TOT,
     abs_step CMAES_ABS) on a published scene in f32, as `cli cmaes` runs
-    it on a card: finite rewards. Returns (the DIA kernel launches of the
-    generation, its seconds, the member rewards)."""
-    from thinshelllab_torch.ops import dia_spmv as K
+    it on a card: finite rewards. Returns (the launches of the four kernels
+    in the generation, its seconds, the member rewards)."""
     from thinshelllab_torch.scenes import registry
     from thinshelllab_torch.train.cmaes import CMAESDriver
 
     sc = registry.make_scene(name, dtype=torch.float32, **kw)
     drv = CMAESDriver(sc, CMAES_TOT, CMAES_ABS, pop_size=CMAES_POP, seed=0,
                       device=device)
-    K.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     info = drv.generation()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     tag = "cmaes-cg" if kw.get("solver") == "cg" else "cmaes"
     s = sc.spec
     plan = (f"DIA n_off {len(s.dia.offsets)}, NVp {s.dia.NVp}"
@@ -1535,6 +1582,7 @@ def cmaes_phase(device, name, **kw):
     log(f"gen 0: best {info['best_reward']:.4f} mean {info['gen_mean']:.4f}")
     if not np.all(np.isfinite(info["rewards"])):
         raise AssertionError(f"{tag} {name}: rewards {info['rewards']}")
+    check_element_launches(f"[{tag}] {name}", launches)
     return launches, secs, info["rewards"]
 
 
@@ -1736,7 +1784,7 @@ def plan_kernel_check(tag, sc, device, dtype, seed=0):
     }
     out, parts = {}, []
     for name, (kern, plain) in cases.items():
-        K.reset_launches()
+        reset_launches()
         yk = kern()
         torch.cuda.synchronize()
         per_call = K.LAUNCHES[name]
@@ -1877,19 +1925,19 @@ def cg_scenes_phase(device):
     from thinshelllab_torch.core.convert import (golden_grad_errors,
                                                  tape_from_entries)
     from thinshelllab_torch.engine import stepper
-    from thinshelllab_torch.ops import dia_spmv as K
 
     z = np.load(GOLDEN_CG)
-    total = {k: 0 for k in K.LAUNCHES}
+    total = {k: 0 for k in launch_counts()}
     for name in CG_SCENES:
         g = {k[len(name) + 1:]: z[k] for k in z.files
              if k.startswith(name + ".")}
         sc = cg_scene(name, device)
         spec, s0, params = sc.to(device)
         acts = cg_actions(name, sc.n_part, spec.dtype, device)
-        K.reset_launches()
+        reset_launches()
         buf, res, stats, fs, bs = cg_run(sc, spec, s0, params, acts)
-        launches = dict(K.LAUNCHES)
+        launches = launch_counts()
+        check_element_launches(f"[cg-scenes] {name}", launches)
         for k, v in launches.items():
             total[k] += v
         cgs = stats["cg_per_newton"]
@@ -1996,7 +2044,6 @@ def cg_trajopt_phase(device):
     balancing (351 offsets), and the f32 folding gradient against an f64
     dense backward on its tape."""
     from thinshelllab_torch.engine import adjoint
-    from thinshelllab_torch.ops import dia_spmv as K
     from thinshelllab_torch.scenes import registry
     from thinshelllab_torch.train.trajopt import TrajOptDriver
 
@@ -2007,7 +2054,7 @@ def cg_trajopt_phase(device):
         drv = TrajOptDriver(sc, T, lr=1e-3, max_dist=0.015, device=device)
         if name == "folding":
             drv.agent.traj[:, :, 2] = CG_FOLD_DZ * np.arange(T)[:, None]
-        K.reset_launches()
+        reset_launches()
         info = drv.iteration()
         st = info["stats"]
         per, cap = st["newton_per_step"], sc.spec.max_newton_iter
@@ -2018,7 +2065,9 @@ def cg_trajopt_phase(device):
             f" {cap}), CG {st['cg_iters']} in all, per Newton iteration mean "
             f"{np.mean(cgs):.1f}, max {max(cgs)} ({sum(c >= sc.spec.cg_max_iter for c in cgs)}"
             f" at the cap {sc.spec.cg_max_iter}); line-search trials "
-            f"{st['ls_trials']}; launches {dict(K.LAUNCHES)}")
+            f"{st['ls_trials']}; launches {launch_counts()}")
+        check_element_launches(f"[cg-trajopt] {name}", launch_counts(),
+                               st["hess_builds"] + len(per))
         log(f"iter 0: reward {info['reward']:.6f} |g| "
             f"{info['grad_norm']:.4g} t {info['wall_time']:.2f}s")
         if not (np.isfinite(info["reward"])
@@ -2084,7 +2133,6 @@ def bench40k_phase(device):
     its store; the hash against the exhaustive sweep on the first and last
     positions. Returns (kernel results, launches of the forward+backward)."""
     from thinshelllab_torch.engine import gridsolve
-    from thinshelllab_torch.ops import dia_spmv as K
     from thinshelllab_torch.scenes import bench_scene
 
     t0 = time.perf_counter()
@@ -2108,15 +2156,15 @@ def bench40k_phase(device):
                                            dt)
             for dt in (torch.float32, torch.float64)}
     spec, s0, params = sc.to(device, torch.float32)
-    K.reset_launches()
+    reset_launches()
     buf, stats, secs = rollout(spec, s0, params, device, BENCH40K_T, PRESS_Z)
-    fwd = dict(K.LAUNCHES)
+    fwd = launch_counts()
     pt = PhaseTimer()
     pt.wrap(gridsolve.GridPreconditioner, "__init__", "BCR factor")
     try:
-        K.reset_launches()
+        reset_launches()
         res, secs_b = backward(sc, spec, params, buf)
-        bwd = dict(K.LAUNCHES)
+        bwd = launch_counts()
     finally:
         pt.restore()
     pos, gg = buf["pos"], res.gripper_grad
@@ -2138,6 +2186,8 @@ def bench40k_phase(device):
     if min(fwd.values()) <= 0 or bwd["dia_spmv"] <= 0:
         raise AssertionError(f"bench-40k launches: forward {fwd}, backward "
                              f"{bwd}")
+    check_element_launches("[bench-40k] forward", fwd, stats["hess_builds"])
+    check_element_launches("[bench-40k] backward", bwd, BENCH40K_T)
     hash_checks(spec, pos, device, z_dtype=s0.proj_flag.dtype, sc=sc)
     return kres, {k: fwd[k] + bwd[k] for k in fwd}
 
@@ -2311,17 +2361,16 @@ BEND_T = 2
 
 
 def _render_cli(args, out):
-    """cli.main(args + --save_dir out) on the card with the DIA launches
-    counted: (launches, seconds)."""
+    """cli.main(args + --save_dir out) on the card with the kernels'
+    launches counted: (launches, seconds)."""
     from thinshelllab_torch import cli
-    from thinshelllab_torch.ops import dia_spmv as K
 
-    K.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cli.main(args + ["--save_dir", out])
     torch.cuda.synchronize()
-    return dict(K.LAUNCHES), time.perf_counter() - t0
+    return launch_counts(), time.perf_counter() - t0
 
 
 def render_phase(device):
@@ -2330,7 +2379,7 @@ def render_phase(device):
     --render_every 1`. Checks the PNG frames against the GIF's decoded
     frames, frame 0's Luisa script and OBJ files against the CPU port's
     from the same positions, and the card's preview image against the
-    CPU's. Returns the Preview run's DIA launches."""
+    CPU's. Returns the Preview run's launches of the four kernels."""
     import shutil
 
     from thinshelllab_torch.render import raster
@@ -2353,7 +2402,7 @@ def render_phase(device):
     drawn = [int((p != 255).any(axis=2).sum()) for p in pngs]
     log(f"[render] cli render --env {RENDER_SCENE} --solver cg --frames "
         f"{RENDER_FRAMES} --max_newton_iter {RENDER_NEWTON} (f32) on the "
-        f"card: {secs:.3f} s, DIA launches {launches}; {len(pngs)} PNG "
+        f"card: {secs:.3f} s, launches {launches}; {len(pngs)} PNG "
         f"frames {pngs[0].shape}, {drawn} pixels drawn; GIF frames equal "
         f"to the PNGs: {gif_ok}, delays {delays} (1/100 s)")
     if not (gif_ok and min(drawn) > 0):
@@ -2361,6 +2410,7 @@ def render_phase(device):
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"[render] kernel {name} was not launched")
+    check_element_launches("[render]", launches)
 
     # the raster alone: the card's image against the CPU's, and its time
     sc = registry.make_scene(RENDER_SCENE, solver="cg", dtype=torch.float32)
@@ -2408,7 +2458,7 @@ def render_phase(device):
                 open(os.path.join(d_cpu, "models_0", name), "rb") as b:
             objs_same &= a.read() == b.read()
     log(f"[render] cli render --render_option LuisaScript: {secs_lu:.3f} s, "
-        f"DIA launches {launches_lu}; scripts and model directories "
+        f"launches {launches_lu}; scripts and model directories "
         f"{sorted(files & want) == sorted(want)}, OBJ files a frame {n_obj}; "
         f"frame 0's script equal to the CPU port's: "
         f"{card_text == cpu_text}, its OBJ files: {objs_same}")
@@ -2422,10 +2472,11 @@ def render_phase(device):
          "--render_every", "1"], d_tr)
     files = set(os.listdir(d_tr))
     log(f"[render] cli trajopt --env {RENDER_SCENE} --solver cg --tot_step 2 "
-        f"--iter 1 --render_every 1: {secs_tr:.3f} s, DIA launches "
+        f"--iter 1 --render_every 1: {secs_tr:.3f} s, launches "
         f"{launches_tr}; wrote {sorted(files)}")
     if not ({"0.png", "1.png", "GIF_0.gif"} <= files
-            and min(launches_tr.values()) > 0):
+            and min(launches_tr.values()) > 0
+            and launches_tr["element_eval"] == launches_tr["element_fuse"]):
         raise AssertionError("[render] trajopt --render_every did not render")
     return launches
 
@@ -2478,7 +2529,6 @@ def bend_batch_phase(device):
     batch, batch, default), T=2, and the adjoint; the small f64 bench with
     both forms on the card against each other and the JAX golden."""
     from thinshelllab_torch.engine import stepper
-    from thinshelllab_torch.ops import dia_spmv as K
     from thinshelllab_torch.scenes import bench_scene
 
     sc = bench_scene.make(cloth_N=70, table_n=12, dtype=torch.float32,
@@ -2486,12 +2536,12 @@ def bend_batch_phase(device):
     spec, s0, params = sc.to(device, torch.float32)
     spec_b = spec.replace(bend_batch=True)
     runs = {}
-    K.reset_launches()
+    reset_launches()
     for sp, tag in ((spec, "default"), (spec_b, "batch"), (spec_b, "batch"),
                     (spec, "default")):
         buf, stats, secs = rollout(sp, s0, params, device, T=BEND_T)
         runs.setdefault(tag, []).append((buf, stats, secs))
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     res, bsecs = backward(sc, spec_b, params, runs["batch"][0][0])
     pos_b, pos_d = runs["batch"][0][0]["pos"], runs["default"][0][0]["pos"]
     cloth_nv = (70 + 1) ** 2
@@ -2509,6 +2559,7 @@ def bend_batch_phase(device):
         f"{float(torch.linalg.vector_norm(res.gripper_grad)):.4e}; positions "
         f"vs the default form {rel:.3e} of the largest cloth displacement "
         f"(tol {PLAIN_VS_KERNEL_RTOL:.0e}); finite {finite}")
+    check_element_launches("[bend-batch]", launches)
     if not (finite and rel <= PLAIN_VS_KERNEL_RTOL
             and min(launches.values()) > 0):
         raise AssertionError("[bend-batch] the batch form's bench run fails")
@@ -2528,6 +2579,146 @@ def bend_batch_phase(device):
         f"{e_jax:.3e} m (tol {BEND_JAX_ATOL:.0e})")
     if not (e_forms <= BEND_F64_ATOL and e_jax <= BEND_JAX_ATOL):
         raise AssertionError("[bend-batch] the two hinge forms disagree")
+
+
+# [element-kernels]: the published folding scene, pressed ELEMENT_STEPS
+# steps of FOLD_DZ, and one cg task scene at its jittered initial state
+ELEMENT_STEPS = 3
+FOLD_DZ = -3e-4
+ELEMENT_CG_SCENE = "forming"
+
+
+def _element_inputs(sc, device, dtype, steps, dz):
+    """(spec, params, pos, ref_angle, contact) of a scene on the card after
+    `steps` steps of the pad moving dz a step (the kernels' route), each
+    vertex then moved by 1e-6 m at random; steps=0: the initial state."""
+    from thinshelllab_torch.engine import stepper
+
+    spec, s0, params = sc.to(device, dtype)
+    pos, prev, ref = s0.pos, s0.pos, s0.ref_angle
+    if steps:
+        acts = scene_actions(spec.gripper.n_part, steps, dtype, device)
+        acts[0][:, :, 2] = dz
+        _, buf = stepper.simulate(spec, params, s0, acts)
+        pos, prev, ref = buf["pos"][-1], buf["pos"][-2], buf["ref_angle"][-1]
+    g = torch.Generator().manual_seed(0)
+    pos = pos + 1e-6 * torch.randn(pos.shape, generator=g,
+                                   dtype=torch.float64).to(device, dtype)
+    contact, _, _ = stepper.build_contacts(spec, params, pos, prev,
+                                           s0.proj_flag, s0.proj_dir)
+    return spec, params, pos, ref, contact
+
+
+def _element_compare(tag, sc, device, steps, dz):
+    """The kernel route of all_groups against plain_groups on the same
+    inputs, f64 and f32, eigh-projected; f32 also against the f64 plain
+    route at the f32 state, where both f32 routes are held alike."""
+    from thinshelllab_torch.engine import elements
+    from thinshelllab_torch.ops import element_kernels as ek
+
+    for dt in (torch.float64, torch.float32):
+        spec, params, pos, ref, contact = _element_inputs(sc, device, dt,
+                                                          steps, dz)
+        ek.reset_launches()
+        got = elements.all_groups(spec, params, pos, ref, contact)
+        torch.cuda.synchronize()
+        launches = dict(ek.LAUNCHES)
+        want = elements.plain_groups(spec, params, pos, ref, contact)
+        errs = {k: rel_err(got[k], want[k]) for k in ("g", "H")}
+        line = (f"[element-kernels] {tag} {dt}: {int(contact.active.sum())} "
+                f"active contacts; kernels vs plain max rel err g "
+                f"{errs['g']:.3e}, H {errs['H']:.3e}; launches {launches}")
+        ok = (torch.equal(got["idx"], want["idx"])
+              and launches == {"element_eval": 1, "element_fuse": 1})
+        if dt == torch.float64:
+            ok = ok and max(errs.values()) <= KERNEL_RTOL[dt]
+            spec64, params64 = spec, params
+        else:
+            c64 = dataclasses.replace(contact, **{
+                f.name: getattr(contact, f.name).double()
+                for f in dataclasses.fields(contact)
+                if getattr(contact, f.name).is_floating_point()})
+            want64 = elements.plain_groups(spec64, params64, pos.double(),
+                                           ref.double(), c64)
+            e64 = {k: (rel_err(got[k].double(), want64[k]),
+                       rel_err(want[k].double(), want64[k]))
+                   for k in ("g", "H")}
+            line += (f"; vs the f64 plain route at this state: kernels g "
+                     f"{e64['g'][0]:.3e} H {e64['H'][0]:.3e}, plain g "
+                     f"{e64['g'][1]:.3e} H {e64['H'][1]:.3e}")
+            # f32 rounding: each route within KERNEL_RTOL of the other, or
+            # the kernels no farther from the f64 value than twice plain's
+            ok = ok and all(errs[k] <= KERNEL_RTOL[dt]
+                            or e64[k][0] <= 2 * e64[k][1] for k in errs)
+        log(line)
+        if not ok:
+            raise AssertionError(f"[element-kernels] {tag} {dt}: the kernel "
+                                 "route disagrees with the plain route")
+
+
+def element_kernels_phase(device):
+    """[element-kernels]: ops/element_kernels against the plain torch.func
+    route (elements.plain_groups) on the published folding scene and on a
+    cg task scene, then each kernel's device ms per call at folding's
+    shapes in f64 beside its byte bound, and the whole all_groups call on
+    both routes."""
+    from thinshelllab_torch.engine import elements
+    from thinshelllab_torch.ops import element_kernels as ek
+    from thinshelllab_torch.scenes import registry
+
+    fold = registry.make_scene("folding")
+    _element_compare("folding", fold, device, ELEMENT_STEPS, FOLD_DZ)
+    _element_compare(f"{ELEMENT_CG_SCENE} (cg)", registry.make_scene(
+        ELEMENT_CG_SCENE, solver="cg"), device, 0, 0.0)
+
+    spec, params, pos, ref, contact = _element_inputs(
+        fold, device, torch.float64, ELEMENT_STEPS, FOLD_DZ)
+    blocks = ek.element_eval(spec, params, pos, ref, contact, True)
+    fused = ek.element_fuse(spec, contact, blocks)
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    c = spec.cloth
+    soups = [spec.neo, spec.tact]
+    inputs = ([pos, ref, c.f2v, c.cloth_id, c.l0, c.rest_area, c.hinge_verts,
+               c.hinge_sel, c.hinge_mask, c.hinge_coef, c.hinge_cloth,
+               spec.dev.canon, params.kl, params.ka, params.kb, params.neo_mu,
+               params.neo_lam, params.tact_mu, params.tact_lam, contact.idx,
+               contact.w, contact.dx0, contact.T, contact.k]
+              + [t for s in soups for t in (s.tets, s.B, s.W, s.group)])
+    read_by_fuse = ([blocks[k] for k in ("Hm", "gm", "Hb", "gb", "Hn", "Gn",
+                                         "Ht", "Gt", "Hr", "Gr", "g1f", "h1f")]
+                    + [c.f2v, c.hinge_verts, spec.neo.tets, spec.tact.tets,
+                       contact.idx, contact.active, contact.w])
+    work = {"element_eval": nbytes(inputs) + nbytes(blocks.values()),
+            "element_fuse": nbytes(read_by_fuse) + nbytes(fused.values())}
+    calls = {"element_eval": lambda: ek.element_eval(spec, params, pos, ref,
+                                                     contact, True),
+             "element_fuse": lambda: ek.element_fuse(spec, contact, blocks)}
+    out = {}
+    for name, fn in calls.items():
+        ms = device_ms(fn, key=f"{name}_kernel", per_call=1)
+        b_ms = work[name] / HBM_BYTES_PER_S * 1e3
+        out[name] = dict(ms=ms, bound_ms=b_ms, bytes=work[name])
+        log(f"[kernel] {name} folding f64 (E = {fused['idx'].shape[0]} fused "
+            f"rows): {ms:.4f} ms device a call; bound {b_ms:.4f} ms by "
+            f"bytes ({work[name] / 1e6:.2f} MB); events "
+            f"{event_ms(fn, 60):.4f} ms")
+    route = call_ms(lambda: elements.all_groups(spec, params, pos, ref,
+                                                contact), n=20)
+    route_nospd = call_ms(lambda: elements.all_groups(
+        spec, params, pos, ref, contact, spd=False), n=20)
+    plain = call_ms(lambda: elements.plain_groups(spec, params, pos, ref,
+                                                  contact), n=5, warmup=2)
+    plain_nospd = call_ms(lambda: elements.plain_groups(
+        spec, params, pos, ref, contact, False), n=5, warmup=2)
+    log(f"[element-kernels] folding f64 all_groups(with_hess=True) per call: "
+        f"kernels {route:.3f} ms ({route_nospd:.3f} ms without the eigh "
+        f"projection), plain {plain:.3f} ms ({plain_nospd:.3f} ms without)")
+    for v in out.values():
+        v.update(route_ms=route, plain_ms=plain)
+    return out
 
 
 def profile_trace_phase(device):
@@ -2671,7 +2862,6 @@ def mesh_phase(sc, spec, s0, params, device, rewards_cmaes_cg):
     import torch.distributed as dist
 
     from thinshelllab_torch import entry as tentry
-    from thinshelllab_torch.ops import dia_spmv as K
     from thinshelllab_torch.parallel import mesh as pmesh
     from thinshelllab_torch.scenes import registry
     from thinshelllab_torch.train.cmaes import CMAESDriver
@@ -2687,14 +2877,14 @@ def mesh_phase(sc, spec, s0, params, device, rewards_cmaes_cg):
             f"{mesh.device} in {time.perf_counter() - t0:.2f} s")
 
         with deterministic():
-            K.reset_launches()
+            reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             new_traj, loss = pmesh.sharded_train_step(
                 mesh, spec, params, s0, sc.seed_loss, acts, traj, lr)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            launches = dict(K.LAUNCHES)
+            launches = launch_counts()
             t0 = time.perf_counter()
             g_ref, loss_ref = serial_train_reference(sc, spec, s0, params,
                                                      acts)
@@ -2710,6 +2900,7 @@ def mesh_phase(sc, spec, s0, params, device, rewards_cmaes_cg):
             f"mean of {MESH_B} serial backwards max rel err {e_g:.3e} (tol "
             f"{MESH_GRAD_RTOL:.0e}), loss proxy {float(loss):.6f} vs "
             f"{loss_ref:.6f}, rel err {e_loss:.3e} (tol {MESH_LOSS_RTOL:.0e})")
+        check_element_launches("[mesh] (a)", launches)
         if not (float(g_mesh.abs().max()) > 0 and bool(
                 torch.isfinite(new_traj).all()) and e_g <= MESH_GRAD_RTOL
                 and e_loss <= MESH_LOSS_RTOL):
@@ -2724,13 +2915,13 @@ def mesh_phase(sc, spec, s0, params, device, rewards_cmaes_cg):
         drv = CMAESDriver(cg_sc, CMAES_TOT, CMAES_ABS, pop_size=CMAES_POP,
                           seed=0, mesh=mesh)
         with deterministic():
-            K.reset_launches()
+            reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             info = drv.generation()
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            launches_b = dict(K.LAUNCHES)
+            launches_b = launch_counts()
         want = np.asarray(rewards_cmaes_cg)
         log(f"[mesh] (b) CMAESDriver(mesh=make_mesh(1)) {CMAES_CG_SCENE} f32 "
             f"cg, pop {CMAES_POP}, deterministic algorithms: {secs:.3f} s, "
@@ -2738,6 +2929,7 @@ def mesh_phase(sc, spec, s0, params, device, rewards_cmaes_cg):
             f"stop steps {info['stop_steps']}, early {info['early']}; equal "
             f"to [cmaes-cg]'s {want.tolist()}: "
             f"{np.array_equal(info['rewards'], want)}")
+        check_element_launches("[mesh] (b)", launches_b)
         if not (np.array_equal(info["rewards"], want)
                 and min(launches_b.values()) > 0):
             raise AssertionError("the mesh's CMA-ES generation differs from "
@@ -2814,13 +3006,15 @@ def main():
         f"CUDA {torch.version.cuda}")
 
     from thinshelllab_torch.ops import dia_spmv as K
+    from thinshelllab_torch.ops import element_kernels as EK
     from thinshelllab_torch.scenes import bench_scene
 
-    t0 = time.perf_counter()
-    K.build(verbose=True)
-    K._load()
-    log(f"[build] nvcc sm_90a -> {os.path.relpath(K._LIB_PATH, ROOT)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    for mod in (K, EK):
+        t0 = time.perf_counter()
+        mod.build(verbose=True)
+        mod._load()
+        log(f"[build] nvcc sm_90a -> {os.path.relpath(mod._LIB_PATH, ROOT)} "
+            f"in {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     sc = bench_scene.make(**BENCH_CFG)
@@ -2837,6 +3031,7 @@ def main():
     timed("debug", debug_phase, device)
     timed("bend-batch", bend_batch_phase, device)
     timed("profile-trace", profile_trace_phase, device)
+    ekres = timed("element-kernels", element_kernels_phase, device)
     timed("native", native_phase)
     timed("golden", golden_check, device)
     timed("golden-adjoint", golden_adjoint_check, device)
@@ -2858,9 +3053,9 @@ def main():
 
     K.dia_precond = counted  # the CG preconditioner's calls
     try:
-        K.reset_launches()
+        reset_launches()
         buf, stats, secs = rollout(spec, s0, params, device)
-        launches = dict(K.LAUNCHES)
+        launches = launch_counts()
     finally:
         K.dia_precond = wrapper
     peak = torch.cuda.max_memory_allocated(device)
@@ -2877,6 +3072,7 @@ def main():
     if launches["dia_precond"] != precond_calls[0]:
         raise AssertionError(f"{launches['dia_precond']} dia_precond launches"
                              f" for {precond_calls[0]} preconditioner calls")
+    check_element_launches("[main]", launches, stats["hess_builds"])
     reward = float(sc.reward({"pos": pos}))
     log(f"[main] f32 T={T_STEPS} with kernels: {T_STEPS / secs:.4f} steps/s "
         f"({secs:.3f} s), Newton iters {stats['newton_iters']}, operator "
@@ -2887,7 +3083,7 @@ def main():
 
     spec_p = spec.replace(spmv="plain")
     rollout(spec_p, s0, params, device)  # warm-up
-    K.reset_launches()
+    reset_launches()
     buf_p, stats_p, secs_p = rollout(spec_p, s0, params, device)
     if any(K.LAUNCHES.values()):
         raise AssertionError(f"plain path launched kernels: {K.LAUNCHES}")
@@ -2915,7 +3111,8 @@ def main():
     launches_fn = timed("full-newton", full_newton_phase, device)
 
     timed("folding-golden", folding_golden_check, device)
-    fsc, fdrv, finfo = timed("folding-trajopt", folding_trajopt, device)
+    fsc, fdrv, finfo, launches_fold = timed("folding-trajopt",
+                                            folding_trajopt, device)
     timed("folding-f32-adjoint", folding_f32_adjoint, fsc, finfo, device)
     timed("folding-phases", folding_phases, fsc, fdrv, device)
 
@@ -2965,19 +3162,24 @@ def main():
             k: r[name][k] for k in ("ms", "bound_ms", "max_abs_err")},
             **r["geometry"]) for dt, r in k40.items()]
 
+    paths = dict(forward=launches, backward=launches_bwd,
+                 full_newton=launches_fn, folding_trajopt=launches_fold,
+                 cg_scenes=launches_cg, bench_40k=launches_40k,
+                 cmaes_cg=launches_cmaes_cg, render=launches_render,
+                 mesh=launches_mesh)
+
+    def counts(name):
+        """The kernel's launches on each path this run drove."""
+        return dict(launches=launches[name] + launches_bwd[name],
+                    **{f"launches_{p}": c[name] for p, c in paths.items()})
+
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=replaces[name],
-             launches=launches[name] + launches_bwd[name],
-             launches_forward=launches[name],
-             launches_backward=launches_bwd[name],
-             launches_full_newton=launches_fn[name],
-             launches_cg_scenes=launches_cg[name],
-             launches_bench_40k=launches_40k[name],
-             launches_cmaes_cg=launches_cmaes_cg[name],
-             launches_render=launches_render[name],
-             launches_mesh=launches_mesh[name],
-             plans=plans(name), **kres[name])
-        for name in ("dia_spmv", "dia_precond")]}))
+             **counts(name), plans=plans(name), **kres[name])
+        for name in ("dia_spmv", "dia_precond")] + [
+        dict(name=name, route="cuda", source="thinshelllab_torch/csrc/"
+             "elements.cu", replaces=None, **counts(name), **ekres[name])
+        for name in ("element_eval", "element_fuse")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

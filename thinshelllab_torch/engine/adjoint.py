@@ -67,6 +67,26 @@ def _cast_float(obj, dt):
         if getattr(obj, f.name).is_floating_point()})
 
 
+def _cast_spec(spec, dt):
+    """Copy of a moved spec with every float tensor, its DeviceConsts'
+    too, in dt: the adjoint's Hessians and solve in a solve dtype other
+    than the spec's read it, so that each sees one float dtype."""
+    def cast(v):
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            return v.to(dt)
+        if isinstance(v, tuple) and any(isinstance(x, torch.Tensor)
+                                        for x in v):
+            return tuple(cast(x) for x in v)
+        return v
+
+    consts = spec.dev
+    dev = dataclasses.replace(consts, **{
+        f.name: cast(getattr(consts, f.name))
+        for f in dataclasses.fields(consts)})
+    moved = super(SceneSpec, spec).to(spec.mass.device, dt)
+    return moved.replace(dtype=dt, dev=dev)
+
+
 def _rebuild_contact(spec, params, pos_prev, proj_flag, proj_dir):
     vn = collision.vertex_normals(pos_prev, spec.faces, spec.NV)
     proj_flag, proj_dir, tri, w = collision.projection_query(
@@ -285,6 +305,7 @@ def _backward_body(spec, params, buffers, seed_pos_grad, seed_ar_grad,
     hmask = spec.dev.hinge_m.to(cd)
     inertia = (spec.mass / spec.dt**2).to(cd)[:, None]
     params_sd = params if sd == d else _cast_float(params, sd)
+    spec_sd = spec if sd == d else _cast_spec(spec, sd)
 
     g1 = torch.zeros((NV, 3), dtype=cd, device=dev)
     g2 = torch.zeros_like(g1)
@@ -354,15 +375,15 @@ def _backward_body(spec, params, buffers, seed_pos_grad, seed_ar_grad,
 
         # true Hessian at pos_t, solve H z = pg_t
         groups = elements.all_groups(
-            spec, params_sd, pos_t.to(sd), ref_t.to(sd),
+            spec_sd, params_sd, pos_t.to(sd), ref_t.to(sd),
             contact if sd == d else _cast_float(contact, sd),
             with_hess=True, spd=False)
         z, it = solver.solve_adjoint(
-            spec, groups, pg_t.to(sd), x0=z_prev if warm_start else None,
+            spec_sd, groups, pg_t.to(sd), x0=z_prev if warm_start else None,
             return_iters=True)
         z_c = z.to(cd)
 
-        tmp_z_frozen = elements.frozen_column_product(spec, groups, z)
+        tmp_z_frozen = elements.frozen_column_product(spec_sd, groups, z)
         x_hat_grad = z_c * inertia * unfrozen
         bp = _contact_energy_backprop(spec, contact_c, pos_t.to(cd), z_c)
 

@@ -28,6 +28,7 @@ import torch.nn.functional as tF
 
 from ..core.spec import ContactSet, DeviceConsts, SceneSpec
 from ..ops import dia_spmv as _spmv
+from ..ops import element_kernels as _ek
 from ..ops import energies as en
 from ..ops.spd import project_psd_2x2, project_psd_method
 from . import gridsolve
@@ -562,10 +563,20 @@ def all_groups(spec, params, pos, ref_angle, contact, with_hess=True, spd=True):
         idx: (E, 4) (3-vertex elements padded with the ghost vertex NV)
         g:   (E, 4, 3)
         H:   (E, 4, 4, 3, 3) when with_hess
-    Barrier and friction share the contact stencil and are summed."""
+    Barrier and friction share the contact stencil and are summed. With
+    the Hessian, CUDA tensors take the two kernels of ops/element_kernels
+    (hyper-dual Hessians) and CPU tensors the torch.func code below."""
     if not with_hess:
         return force_groups_from_soups(
             spec, params, gather_soups(spec, contact, pos), ref_angle, contact)
+    if pos.is_cuda:
+        return _kernel_groups(spec, params, pos, ref_angle, contact, spd)
+    return plain_groups(spec, params, pos, ref_angle, contact, spd)
+
+
+def plain_groups(spec, params, pos, ref_angle, contact, spd=True):
+    """all_groups(with_hess=True) by torch.func on any device: the plain
+    version of the element kernels, which CPU tensors take."""
     groups = [membrane_eval(spec, params, pos, True, spd)[1],
               bending_eval(spec, params, pos, ref_angle, True, spd)[1]]
     if spec.neo.tets.shape[0]:
@@ -576,7 +587,20 @@ def all_groups(spec, params, pos, ref_angle, contact, with_hess=True, spd=True):
     _, gf = friction_eval(spec, contact, pos, True, spd)
     groups.append({"idx": gc["idx"], "g": gc["g"] + gf["g"],
                    "H": gc["H"] + gf["H"]})
-    return fuse_groups(spec, groups, with_hess)
+    return fuse_groups(spec, groups, True)
+
+
+def _kernel_groups(spec, params, pos, ref_angle, contact, spd):
+    """all_groups(with_hess=True) on the card: element_eval, each family's
+    eigh (or shift) projection as the torch.func route makes it, and
+    element_fuse into fuse_groups' layout."""
+    blocks = _ek.element_eval(spec, params, pos, ref_angle, contact, spd)
+    if spd:
+        for name in _ek.PSD_BLOCKS:
+            if blocks[name].shape[0]:
+                blocks[name] = project_psd_method(
+                    blocks[name], spec.spd_method).contiguous()
+    return _ek.element_fuse(spec, contact, blocks)
 
 
 def fuse_groups(spec, groups, with_hess=True):

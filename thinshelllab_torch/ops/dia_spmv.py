@@ -58,32 +58,47 @@ def _nvcc():
         if c and os.path.exists(c):
             return c
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): "
-                       "the DIA kernels cannot be built")
+                       "the CUDA kernels cannot be built")
+
+
+def build_library(src, lib_path, compiler, verbose=False) -> str:
+    """Compile `src` into the shared library `lib_path` with the command
+    `compiler` (its flags, without -o and the source) when the library is
+    missing or older than the source, through a temporary file, so that
+    processes building at once never load a half-written library. Returns
+    the library path."""
+    if (os.path.exists(lib_path)
+            and os.path.getmtime(lib_path) >= os.path.getmtime(src)):
+        return lib_path
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(lib_path))
+    os.close(fd)
+    try:
+        res = subprocess.run([*compiler, "-o", tmp, src], capture_output=True,
+                             text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"{os.path.basename(compiler[0])} failed "
+                               f"({res.returncode}) on {src}:\n{res.stderr}")
+        if verbose:
+            print(res.stderr.strip())
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib_path
+
+
+def nvcc_flags():
+    """nvcc and its flags for a shared library of sm_90a kernels with a
+    plain C interface."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def build(verbose=False) -> str:
     """Compile csrc/dia_spmv.cu into _build/libtsl_dia.so when the library
     is missing or older than the source. Returns the library path."""
-    if (os.path.exists(_LIB_PATH)
-            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC)):
-        return _LIB_PATH
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, _SRC]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        if verbose:
-            print(res.stderr.strip())
-        os.replace(tmp, _LIB_PATH)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return _LIB_PATH
+    return build_library(_SRC, _LIB_PATH, nvcc_flags(), verbose)
 
 
 def _load():
